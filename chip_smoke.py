@@ -29,11 +29,15 @@ Phases, in order (any failure exits nonzero):
      traceback_core of ops/yama_full.py) against their plain versions
      (yama_core_reference, traceback_reference), bit for bit over every
      flag, the last cells, the scripts and nedit, every valid job's
-     replay equal to yama_numpy: the pad ladder 16, 32, 256, 1024, 2048
+     replay equal to yama_numpy, the forward on both of its paths (the
+     block path on every job, the warp path on the jobs it takes; each
+     line names the path, its lanes a thread and the window), the
+     traceback after each: the pad ladder 16, 32, 256, 1024, 2048
      (tools/kernel_cases.full_ladder_jobs: M = 0 problems, a one-column
      B, 8 rows a side, LB jumps), one problem of 9000 columns (n_pad
      16384), the odd shapes of kernel_cases.edge_jobs, and the bench
-     bucket, where both are timed beside their plain versions,
+     bucket, where the forward (its planned warp path, and the block
+     path) and the traceback are timed beside their plain versions,
      full_dp_bound/full_tb_bound and
      full_dp_chain_bound/full_tb_chain_bound;
   4. the bench workload (1024 synthetic jobs) through yama_batch_packed
@@ -47,10 +51,14 @@ Phases, in order (any failure exits nonzero):
   8. the full-row DP path (ops/yama_full.py, its two kernels) on the
      card: the bench workload equal to yama_numpy, the goldens and phase
      6's tba (same dataset) under MULTIZ_TPU_TORCH_DEVICE=full,
-     byte-equal, every bucket on the card launching both kernels once;
-     the device time of the bench's largest bucket (both kernels) beside
-     the plain versions' (phase 3) and the packed path's on the same
-     jobs (CUDA events);
+     byte-equal, every bucket on the card launching both kernels once,
+     the forward's launches counted by path; each bucket's (B, m_pad,
+     n_pad, path) logged, and every bucket of the bench workload and of
+     the tba must take the warp path; then both kernels at each of the
+     tba's buckets, their CUDA-event times summed beside their bounds
+     and chain bounds summed; the device time of the bench's largest
+     bucket (both kernels) beside the plain versions' (phase 3) and the
+     packed path's on the same jobs (CUDA events);
   9. the multi-process packed DP: the bench workload through
      distributed_yama_batch_packed over 2 gloo ranks sharing the card
      (one rank per card where there are several), every rank's full
@@ -284,8 +292,10 @@ def bench_bucket():
 
 def _full_case(name, jobs, timing=False):
     """The full-row kernels against their plain versions on the card for
-    one bucket of ``jobs`` at its pads: (dp err, tb err, times or
-    None)."""
+    one bucket of ``jobs`` at its pads, the forward on both paths: the
+    block path on every job, the warp path on the jobs it takes (all of
+    them where the bucket is eligible); the traceback after each. Returns
+    (dp err, tb err, times or None)."""
     import numpy as np
     import torch
 
@@ -295,64 +305,87 @@ def _full_case(name, jobs, timing=False):
     from multiz_tpu_torch.ops.yama_pack import _pad_to, replay_script
     from multiz_tpu_torch.scores import from_score_params
     from multiz_tpu_torch.tools import cuda_ms
+    from multiz_tpu_torch.tools.kernel_cases import full_warp_jobs
 
     m_pad = _pad_to(max(A.shape[0] for A, *_ in jobs))
     n_pad = _pad_to(max(B.shape[0] for _, B, *_ in jobs))
     st = from_score_params(sc.init_scores70(), "cuda")
-    stacked = F.stack_jobs(jobs, m_pad, n_pad, "cuda")
-    args = [stacked[k] for k in F.STACK_KEYS]
-    tb_args = [stacked[k] for k in ("LB", "RB", "M", "N")]
-    dp_call = (*args, st.ss_cat, st.gap_open, st.gap_extend, m_pad, n_pad)
-    got = F.yama_core(*dp_call)
-    ref = F.yama_core_reference(*dp_call)
-    script, nedit = F.traceback_core(got[0], *tb_args, *got[1:], m_pad,
-                                     n_pad)
-    rscript, rnedit = F.traceback_reference(got[0], *tb_args, *got[1:],
-                                            m_pad, n_pad)
-    torch.cuda.synchronize()
-    err_dp = max(int((g.long() - r.long()).abs().max()) if g.numel() else 0
-                 for g, r in zip(got, ref))
-    err_tb = max(int((script.long() - rscript.long()).abs().max()),
-                 int((nedit.long() - rnedit.long()).abs().max()))
-    sn, nn = script.cpu().numpy(), nedit.cpu().numpy()
-    nvalid = 0
-    for i, (A, B, LB, RB) in enumerate(jobs):
-        try:
-            want = Y.yama_numpy(A, B, LB, RB)
-        except Y.YamaError:
-            continue
-        nvalid += 1
-        if not np.array_equal(replay_script(sn[i], int(nn[i]), A, B), want):
-            raise AssertionError(f"full {name}: job {i} differs from "
-                                 "yama_numpy")
-    log(f"# full kernels {name}: {len(jobs)} problems at {m_pad}x{n_pad}: "
-        f"dp err {err_dp}, tb err {err_tb}; {nvalid} replays equal to "
-        "yama_numpy")
-    if err_dp or err_tb:
-        raise AssertionError(f"full {name}: a kernel differs from its plain "
-                             "version")
+    err_dp = err_tb = 0
     t = None
-    if timing:
-        dp_b, dp_by = F.full_dp_bound(stacked, m_pad, n_pad)
-        tb_b, tb_by = F.full_tb_bound(nedit, stacked, m_pad, n_pad)
-        # the plain versions ran once above; each takes seconds
-        t = {
-            "full_dp_ms": cuda_ms(lambda: F.yama_core(*dp_call), 10),
-            "full_dp_plain_ms": cuda_ms(
-                lambda: F.yama_core_reference(*dp_call), 1, warm=False),
-            "full_dp_bound_ms": dp_b * 1e3, "full_dp_bound_by": dp_by,
-            "full_dp_chain_bound_ms": F.full_dp_chain_bound(
-                stacked, m_pad, n_pad) * 1e3,
-            "full_tb_ms": cuda_ms(lambda: F.traceback_core(
-                got[0], *tb_args, *got[1:], m_pad, n_pad), 10),
-            "full_tb_plain_ms": cuda_ms(lambda: F.traceback_reference(
-                got[0], *tb_args, *got[1:], m_pad, n_pad), 1, warm=False),
-            "full_tb_bound_ms": tb_b * 1e3, "full_tb_bound_by": tb_by,
-            "full_tb_chain_bound_ms": F.full_tb_chain_bound(nedit) * 1e3,
-        }
-        log(f"# full kernels {name} times (ms): " + json.dumps(t))
-    del got, ref, script, rscript
-    torch.cuda.empty_cache()
+    for path in ("warp", "block"):
+        pjobs = jobs if path == "block" else full_warp_jobs(jobs, m_pad,
+                                                            n_pad)
+        if not pjobs:
+            log(f"# full kernels {name}: no job the warp path takes")
+            continue
+        host = F.stack_host(pjobs, m_pad, n_pad)
+        plan = F.full_plan(host["LB"], host["RB"], host["M"], m_pad, n_pad,
+                           path=path)
+        stacked = F.upload(host, "cuda")
+        args = [stacked[k] for k in F.STACK_KEYS]
+        tb_args = [stacked[k] for k in ("LB", "RB", "M", "N")]
+        dp_call = (*args, st.ss_cat, st.gap_open, st.gap_extend, m_pad,
+                   n_pad)
+        got = F.yama_core(*dp_call, plan=plan)
+        ref = F.yama_core_reference(*dp_call)
+        script, nedit = F.traceback_core(got[0], *tb_args, *got[1:], m_pad,
+                                         n_pad)
+        rscript, rnedit = F.traceback_reference(got[0], *tb_args, *got[1:],
+                                                m_pad, n_pad)
+        torch.cuda.synchronize()
+        e_dp = max(int((g.long() - r.long()).abs().max()) if g.numel() else 0
+                   for g, r in zip(got, ref))
+        e_tb = max(int((script.long() - rscript.long()).abs().max()),
+                   int((nedit.long() - rnedit.long()).abs().max()))
+        sn, nn = script.cpu().numpy(), nedit.cpu().numpy()
+        nvalid = 0
+        for i, (A, B, LB, RB) in enumerate(pjobs):
+            try:
+                want = Y.yama_numpy(A, B, LB, RB)
+            except Y.YamaError:
+                continue
+            nvalid += 1
+            if not np.array_equal(replay_script(sn[i], int(nn[i]), A, B),
+                                  want):
+                raise AssertionError(f"full {name} ({path}): job {i} differs "
+                                     "from yama_numpy")
+        log(f"# full kernels {name} ({path} path, {plan.per_thread} lanes a "
+            f"thread, window {plan.window}): {len(pjobs)} of {len(jobs)} "
+            f"problems at {m_pad}x{n_pad}: dp err {e_dp}, tb err {e_tb}; "
+            f"{nvalid} replays equal to yama_numpy")
+        if e_dp or e_tb:
+            raise AssertionError(f"full {name} ({path}): a kernel differs from "
+                                 "its plain version")
+        err_dp, err_tb = max(err_dp, e_dp), max(err_tb, e_tb)
+        if timing and path == "warp":
+            dp_b, dp_by = F.full_dp_bound(stacked, m_pad, n_pad)
+            tb_b, tb_by = F.full_tb_bound(nedit, stacked, m_pad, n_pad)
+            # the plain versions ran once above; each takes seconds
+            t = {
+                "full_dp_path": plan.path, "full_dp_per_thread": plan.per_thread,
+                "full_dp_per_block": plan.per_block,
+                "full_dp_ms": cuda_ms(lambda: F.yama_core(*dp_call, plan=plan),
+                                      10),
+                "full_dp_plain_ms": cuda_ms(
+                    lambda: F.yama_core_reference(*dp_call), 1, warm=False),
+                "full_dp_bound_ms": dp_b * 1e3, "full_dp_bound_by": dp_by,
+                "full_dp_chain_bound_ms": F.full_dp_chain_bound(
+                    stacked, m_pad, n_pad) * 1e3,
+                "full_tb_ms": cuda_ms(lambda: F.traceback_core(
+                    got[0], *tb_args, *got[1:], m_pad, n_pad), 10),
+                "full_tb_plain_ms": cuda_ms(lambda: F.traceback_reference(
+                    got[0], *tb_args, *got[1:], m_pad, n_pad), 1, warm=False),
+                "full_tb_bound_ms": tb_b * 1e3, "full_tb_bound_by": tb_by,
+                "full_tb_chain_bound_ms": F.full_tb_chain_bound(nedit) * 1e3,
+            }
+        if timing and path == "block":
+            block = F.full_plan(host["LB"], host["RB"], host["M"], m_pad,
+                                n_pad, path="block")
+            t["full_dp_block_path_ms"] = cuda_ms(
+                lambda: F.yama_core(*dp_call, plan=block), 10)
+            log(f"# full kernels {name} times (ms): " + json.dumps(t))
+        del got, ref, script, rscript
+        torch.cuda.empty_cache()
     return err_dp, err_tb, t
 
 
@@ -514,34 +547,93 @@ def phase_realistic(sim, counters):
 
 
 @contextlib.contextmanager
-def full_buckets():
-    """Records the device type of every full-row bucket run inside (in
-    ``seen["devices"]``) and the full-row kernels' launches, counted from
-    0 on entry (``seen["launches"]``, [yama_full_dp, yama_full_tb], read
-    on exit); on exit, raises unless every bucket ran on the card and
-    launched each kernel once."""
+def full_buckets(keep=False):
+    """Records every full-row bucket run inside: its device type (in
+    ``seen["devices"]``) and (B, m_pad, n_pad, forward path) (in
+    ``seen["buckets"]``), and with ``keep`` a clone of its operands and its
+    plan (in ``seen["kept"]``); and the full-row kernels' launches, counted
+    from 0 on entry (``seen["launches"]``, [yama_full_dp, yama_full_tb],
+    and ``seen["paths"]``, the forward's by path, read on exit). On exit,
+    raises unless every bucket ran on the card and launched each kernel
+    once, on the path of its plan."""
     from multiz_tpu_torch.ops import yama_full as F
 
-    run, seen = F._run_bucket, {"devices": [], "launches": None}
+    run = F._run_bucket
+    seen = {"devices": [], "buckets": [], "kept": [], "launches": None,
+            "paths": None}
     counters = (F.yama_core, F.traceback_core)
 
-    def counted(stacked, *args):
+    def counted(stacked, st, m_pad, n_pad, plan=None):
         seen["devices"].append(stacked["M"].device.type)
-        return run(stacked, *args)
+        seen["buckets"].append((int(stacked["M"].shape[0]), m_pad, n_pad,
+                                plan.path if plan else None))
+        if keep:
+            seen["kept"].append(({k: v.clone() for k, v in stacked.items()},
+                                 plan, m_pad, n_pad))
+        return run(stacked, st, m_pad, n_pad, plan)
 
     for c in counters:
         c.launches = 0
+    F.yama_core.paths = dict.fromkeys(F.yama_core.paths, 0)
     F._run_bucket = counted
     try:
         yield seen
     finally:
         F._run_bucket = run
         seen["launches"] = [c.launches for c in counters]
+        seen["paths"] = dict(F.yama_core.paths)
     n = len(seen["devices"])
+    by_path = {p: sum(b[3] == p for b in seen["buckets"])
+               for p in seen["paths"]}
     if (not n or set(seen["devices"]) != {"cuda"}
-            or seen["launches"] != [n, n]):
+            or seen["launches"] != [n, n] or seen["paths"] != by_path):
         raise AssertionError(f"full-row buckets: ran on {seen['devices']}, "
-                             f"kernel launches {seen['launches']}")
+                             f"kernel launches {seen['launches']}, by path "
+                             f"{seen['paths']} for plans {by_path}")
+
+
+def _all_warp(seen, what):
+    """Raise unless every bucket of ``seen`` took the warp path."""
+    off = [b for b in seen["buckets"] if b[3] != "warp"]
+    if off:
+        raise AssertionError(f"{what}: buckets off the warp path: {off}")
+
+
+def hold_full_buckets(kept):
+    """Both full-row kernels at each bucket kept from the full-mode tba:
+    their CUDA-event times summed beside their bounds and chain bounds
+    summed (the scripts of each launch already made the tba's output)."""
+    import torch
+
+    from multiz_tpu_torch import scores as sc
+    from multiz_tpu_torch.ops import yama_full as F
+    from multiz_tpu_torch.scores import from_score_params
+    from multiz_tpu_torch.tools import cuda_ms
+
+    st = from_score_params(sc.init_scores70(), "cuda")
+    sums = {"buckets": len(kept), "problems": 0, "dp_ms": 0.0,
+            "dp_bound_ms": 0.0, "dp_chain_bound_ms": 0.0, "tb_ms": 0.0,
+            "tb_bound_ms": 0.0, "tb_chain_bound_ms": 0.0}
+    for stacked, plan, m_pad, n_pad in kept:
+        call = (*(stacked[k] for k in F.STACK_KEYS), st.ss_cat, st.gap_open,
+                st.gap_extend, m_pad, n_pad)
+        flags, *last = F.yama_core(*call, plan=plan)
+        tb_args = (flags, stacked["LB"], stacked["RB"], stacked["M"],
+                   stacked["N"], *last, m_pad, n_pad)
+        _, nedit = F.traceback_core(*tb_args)
+        torch.cuda.synchronize()
+        sums["problems"] += int(stacked["M"].shape[0])
+        sums["dp_ms"] += cuda_ms(lambda: F.yama_core(*call, plan=plan), 10)
+        sums["tb_ms"] += cuda_ms(lambda: F.traceback_core(*tb_args), 10)
+        sums["dp_bound_ms"] += F.full_dp_bound(stacked, m_pad, n_pad)[0] * 1e3
+        sums["dp_chain_bound_ms"] += F.full_dp_chain_bound(
+            stacked, m_pad, n_pad) * 1e3
+        sums["tb_bound_ms"] += F.full_tb_bound(nedit, stacked, m_pad,
+                                               n_pad)[0] * 1e3
+        sums["tb_chain_bound_ms"] += F.full_tb_chain_bound(nedit) * 1e3
+        del flags, last, nedit
+    log(f"# full realistic tba, both kernels at each of its buckets, sums: "
+        f"{json.dumps(sums)}")
 
 
 def phase_full(sim, want_tba, times):
@@ -570,7 +662,9 @@ def phase_full(sim, want_tba, times):
             raise AssertionError(f"full bench job {i} differs from yama_numpy")
     log(f"# full bench: {len(jobs)} jobs equal to yama_numpy in {dt:.4f} s "
         f"({len(seen['devices'])} buckets; kernel launches "
-        f"{seen['launches']})")
+        f"{seen['launches']}, forward by path {json.dumps(seen['paths'])}; "
+        f"buckets (B, m_pad, n_pad, path) {json.dumps(seen['buckets'])})")
+    _all_warp(seen, "full bench")
 
     # device time of the packed path's largest bench bucket, both ways,
     # from operands already on the card: the full-row DP and traceback
@@ -579,12 +673,15 @@ def phase_full(sim, want_tba, times):
     bjobs, _ = bench_bucket()
     m_pad, n_pad, Kp, Lp, fw = P.bucket_of(bjobs)
     st = from_score_params(sc.init_scores70(), "cuda")
-    stacked = F.stack_jobs(bjobs, m_pad, n_pad, "cuda")
-    full_ms = cuda_ms(lambda: F._run_bucket(stacked, st, m_pad, n_pad), 10)
+    host = F.stack_host(bjobs, m_pad, n_pad)
+    plan = F.full_plan(host["LB"], host["RB"], host["M"], m_pad, n_pad)
+    stacked = F.upload(host, "cuda")
+    full_ms = cuda_ms(lambda: F._run_bucket(stacked, st, m_pad, n_pad, plan),
+                      10)
     buf = P.pack_wire(bjobs, m_pad, n_pad, Kp, Lp).to("cuda")
     packed_ms = cuda_ms(lambda: P.device_batch(
         buf, len(bjobs), m_pad, n_pad, Kp, Lp, fw, st), 10)
-    scripts, nedits = F._run_bucket(stacked, st, m_pad, n_pad)
+    scripts, nedits = F._run_bucket(stacked, st, m_pad, n_pad, plan)
     payload = P.device_batch(buf, len(bjobs), m_pad, n_pad, Kp, Lp, fw, st)
     got_full = {}
     sn, nn = scripts.cpu().numpy(), nedits.cpu().numpy()
@@ -608,7 +705,8 @@ def phase_full(sim, want_tba, times):
     with full_buckets() as seen:
         phase_goldens("full")
     launches = [a + b for a, b in zip(launches, seen["launches"])]
-    with full_buckets() as seen:
+    log(f"# full goldens: forward by path {json.dumps(seen['paths'])}")
+    with full_buckets(keep=True) as seen:
         got, nblocks, t_full = run_tba(sim, F.batch_fn_for("cuda"))
     launches = [a + b for a, b in zip(launches, seen["launches"])]
     if got != want_tba:
@@ -616,7 +714,12 @@ def phase_full(sim, want_tba, times):
                              "inline host run")
     log(f"# full realistic tba: {nblocks} blocks byte-equal to the inline run "
         f"in {t_full:.3f} s ({len(seen['devices'])} buckets; kernel launches "
-        f"{seen['launches']})")
+        f"{seen['launches']}, forward by path {json.dumps(seen['paths'])})")
+    log(f"# full realistic tba buckets (B, m_pad, n_pad, path): "
+        f"{json.dumps(seen['buckets'])}")
+    _all_warp(seen, "full realistic tba")
+    hold_full_buckets(seen["kept"])
+    del seen
     log(f"# full-row kernels launched in phase 8: yama_full_dp "
         f"{launches[0]}, yama_full_tb {launches[1]}")
     return full_ms, (sn, nn), launches

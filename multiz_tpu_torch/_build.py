@@ -37,11 +37,12 @@ _SIGNATURES = {
     # go, ge, path, cpl, warps, cluster, grid, stream
     "yama_prep_launch": (_P,) * 6 + (_I,) * 13 + (_P,),
     # histA, a0, a1, pa, histB, b0, b1, pb, LB, RB, M, N, K, L, ss_cat,
-    # flags, last, scratch, B, m_pad, n_pad, go, ge, stream
-    "yama_full_dp_launch": (_P,) * 18 + (_I,) * 5 + (_P,),
+    # flags, last, scratch, B, m_pad, n_pad, go, ge, per_thread,
+    # per_block, stream
+    "yama_full_dp_launch": (_P,) * 18 + (_I,) * 7 + (_P,),
     # flags, LB, RB, M, N, lastC, lastD, lastI, script, nedit, B, m_pad,
-    # n_pad, stream
-    "yama_full_tb_launch": (_P,) * 10 + (_I,) * 3 + (_P,),
+    # n_pad, per_block, stream
+    "yama_full_tb_launch": (_P,) * 10 + (_I,) * 4 + (_P,),
 }
 
 _lib = None
@@ -126,11 +127,14 @@ def load() -> ctypes.CDLL:
     return _lib
 
 
-def count_launch(wrapper) -> None:
-    """Add one to ``wrapper.launches``; every kernel wrapper counts under
-    the same lock, so counts over concurrent merges are exact."""
+def count_launch(wrapper, path: str | None = None) -> None:
+    """Add one to ``wrapper.launches``, and to ``wrapper.paths[path]``
+    where the kernel has paths; every kernel wrapper counts under the
+    same lock, so counts over concurrent merges are exact."""
     with _count_lock:
         wrapper.launches += 1
+        if path is not None:
+            wrapper.paths[path] += 1
 
 
 def check(rc: int, what: str) -> None:

@@ -31,7 +31,9 @@ def entry(device="cuda"):
     on ``device``, and returns (scripts, nedits)."""
     from . import scores as sc
     from .ops.synth import synth_jobs
-    from .ops.yama_full import STACK_KEYS, stack_jobs, traceback_core, yama_core
+    from .ops.yama_full import (
+        STACK_KEYS, full_plan, stack_host, traceback_core, upload, yama_core,
+    )
     from .parallel.sharding import require_device
     from .scores import from_score_params
 
@@ -39,12 +41,13 @@ def entry(device="cuda"):
     st = from_score_params(sc.current, dev)
     go, ge = st.gap_open, st.gap_extend
     m_pad = n_pad = 256
-    stacked = stack_jobs(synth_jobs(8, m_lo=128, m_hi=200, seed=7), m_pad,
-                         n_pad, dev)
+    host = stack_host(synth_jobs(8, m_lo=128, m_hi=200, seed=7), m_pad, n_pad)
+    plan = full_plan(host["LB"], host["RB"], host["M"], m_pad, n_pad)
+    stacked = upload(host, dev)
 
     def fn(*args):
         ops, ss = args[:-1], args[-1]
-        flags, *last = yama_core(*ops, ss, go, ge, m_pad, n_pad)
+        flags, *last = yama_core(*ops, ss, go, ge, m_pad, n_pad, plan=plan)
         lb, rb, m, n = ops[8:12]
         return traceback_core(flags, lb, rb, m, n, *last, m_pad, n_pad)
 

@@ -14,9 +14,11 @@ over rows, one jitted program per bucket. Here ``yama_core`` and
 ``csrc/yama_full.cu`` on CUDA tensors, one launch each per bucket, and
 their plain versions ``yama_core_reference`` and ``traceback_reference``
 (a Python loop of torch ops over rows and over walk steps) only on CPU
-tensors. ``full_dp_bound``, ``full_dp_chain_bound``, ``full_tb_bound``
-and ``full_tb_chain_bound`` are the least times the card could take for
-one launch. It is the counterpart of ``MULTIZ_TPU_DEVICE=jax``
+tensors. The forward kernel has two paths, ``warp`` and ``block``;
+``full_plan`` picks one per bucket from its bands on the host.
+``full_dp_bound``, ``full_dp_chain_bound``, ``full_tb_bound`` and
+``full_tb_chain_bound`` are the least times the card could take for one
+launch. It is the counterpart of ``MULTIZ_TPU_DEVICE=jax``
 (``ops/dispatch.py`` mode ``full``), not the production path, which is
 ``ops/yama_pack.py``.
 
@@ -33,6 +35,8 @@ the CPU.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -44,40 +48,47 @@ from ..yama import _check_band, column_stats
 from ..parallel.sharding import pad_batch, require_device, shard_stacked
 from ..scores import from_score_params
 from .yama_dp import (
-    CLOCK_HZ, FLAG_C, FLAG_D, FLAG_I, HBM_BYTES_PER_S, INT32_OPS_PER_S,
-    MININT, NEG_HUGE, OP_CYCLES, OPS_PER_CELL, SHUFFLE_CYCLES, _pick,
-    _shift1,
+    CLOCK_HZ, DP_ROW_OPS, DP_ROW_SHUFFLES, FLAG_C, FLAG_D, FLAG_I,
+    HBM_BYTES_PER_S, INT32_OPS_PER_S, MININT, NEG_HUGE, OP_CYCLES,
+    OPS_PER_CELL, SHUFFLE_CYCLES, SMS, _pick, _shift1,
 )
 from .yama_pack import _pad_to, replay_script
-from .yama_tb import SMEM_CYCLES
 
 I32 = torch.int32
 U8 = torch.uint8
 
-# csrc/yama_full.cu: the forward's threads (one column each in a tile of
-# a row) and the ints of its column record (the loop invariants and the
-# stored dp row), kept per problem in a global scratch buffer
+# csrc/yama_full.cu. The forward's block path: its threads (one column
+# each in a tile of a row) and the ints of its column record (the loop
+# invariants and the stored dp row), kept per problem in a global
+# scratch buffer. Its warp path: windows up to FULL_WARP_LANES lanes, at
+# most FULL_MAX_PER_BLOCK problems (warps) a block, operands loaded
+# FULL_CHUNK rows ahead, flags staged FULL_FLUSH rows at a time. The
+# traceback: one warp a walk, as many a block as the warp path; windows
+# of TB_ROWS rows staged, TB_SLOT bytes of each row's band, the script
+# staged TB_SCRIPT bytes at a time.
 FULL_THREADS = 128
 FULL_NREC = 15
+FULL_WARP_LANES = 128
+FULL_MAX_PER_BLOCK = 4
+FULL_CHUNK = 32
+FULL_FLUSH = 32
+TB_ROWS = 32
+TB_SLOT = 144
+TB_SCRIPT = 1024
 # Bound terms. The operations term counts the function's work, not the
 # kernel's: the int32 operations of one band cell of row_step
 # (multiz_tpu/ops/yama_jax.py:93-201: the D and C nodes' candidates,
 # picks and flags, the sub_right @ ha product, the I chain's terms and
 # its sum and max scan steps, the flag packing), the same recurrence as
-# the packed DP's and so its count, yama_dp.OPS_PER_CELL. The kernel's
-# record loads, scan shuffles and stores are its own cost. A tile's
-# dependent chain (csrc/yama_full.cu): the stored row's read from the
-# scratch record (the least latency of a global load, an L1 hit,
-# GLOBAL_CYCLES), the two scans' warp totals (FULL_TILE_SMEM shared
-# reads), the D and C nodes and the I node's rebase (FULL_TILE_OPS), the
-# two 5-step warp scans, the shift of this row's C and D and of R
-# (FULL_TILE_SHUFFLES); barriers are not counted. A traceback step: one
-# load of its flag byte (GLOBAL_CYCLES) and FULL_TB_STEP_OPS operations
-# (the row's normalisation and clamp, the address, the band test's
-# select, the pointer's bit field, the row or column step).
-FULL_TILE_SMEM = 2
-FULL_TILE_OPS = 30
-FULL_TILE_SHUFFLES = 12
+# the packed DP's and so its count, yama_dp.OPS_PER_CELL. A row's
+# dependent step is the packed DP's too (yama_dp.dp_chain_bound: the
+# previous row's shifted read, the D and C nodes, this row's shift by a
+# column, the max scan and I's rebase); the sum scan does not wait on
+# the previous row. A traceback step: one read of its flag byte at the
+# least latency of an L1 hit or a shared-memory read (GLOBAL_CYCLES) and
+# FULL_TB_STEP_OPS operations (the row's normalisation and clamp, the
+# address, the band test's select, the pointer's bit field, the row or
+# column step).
 GLOBAL_CYCLES = 32
 FULL_TB_STEP_OPS = 8
 
@@ -99,12 +110,24 @@ def _stack_shapes(m_pad: int, n_pad: int) -> dict:
 
 def stack_jobs(jobs, m_pad: int, n_pad: int, device="cpu") -> dict:
     """Stack same-bucket (A, B, LB, RB) problems into the batched
-    operands, keyed by ``STACK_KEYS``: int32 tensors on ``device``.
+    operands, keyed by ``STACK_KEYS``: ``stack_host``'s arrays as int32
+    tensors on ``device``."""
+    return upload(stack_host(jobs, m_pad, n_pad), device)
 
-    Built in numpy as ``yama_jax.stack_jobs`` builds them: with the
-    native host runtime the column statistics are written straight into
-    the batch buffers (``mzcore.colstats_into``), otherwise
-    ``column_stats`` fills them."""
+
+def upload(host: dict, device) -> dict:
+    """``stack_host``'s arrays as tensors on ``device``."""
+    return {k: torch.from_numpy(v).to(device) for k, v in host.items()}
+
+
+def stack_host(jobs, m_pad: int, n_pad: int) -> dict:
+    """The batched operands of ``stack_jobs`` as int32 numpy arrays, keyed
+    by ``STACK_KEYS``.
+
+    Built as ``yama_jax.stack_jobs`` builds them: with the native host
+    runtime the column statistics are written straight into the batch
+    buffers (``mzcore.colstats_into``), otherwise ``column_stats`` fills
+    them."""
     shapes = _stack_shapes(m_pad, n_pad)
     out = {k: np.zeros((len(jobs), *shapes[k]), np.int32)
            for k in STACK_KEYS}
@@ -133,11 +156,84 @@ def stack_jobs(jobs, m_pad: int, n_pad: int, device="cpu") -> dict:
         out["LB"][i, M + 1 :] = LB[M]
         out["RB"][i, M + 1 :] = RB[M]
         out["M"][i], out["N"][i], out["K"][i], out["L"][i] = M, N, K, L
-    return {k: torch.from_numpy(v).to(device) for k, v in out.items()}
+    return out
+
+
+class FullPlan(NamedTuple):
+    path: str  # "warp" or "block"
+    per_thread: int  # band lanes a thread on the warp path, else 0
+    per_block: int  # problems a block
+    grid: int  # blocks
+    threads: int  # threads a block
+    window: int  # the bucket's widest window, lanes
+
+
+def full_window(LB, RB, M, m_pad: int, n_pad: int) -> tuple:
+    """(lanes, monotone) of a bucket's host band arrays (LB, RB (B,
+    m_pad+1) and M (B,), numpy): its widest window, over each problem's
+    rows r = 1..M, max(RB[r], RB[r-1]) - min(LB[r], LB[r-1]) + 1 lanes,
+    and over row 0 min(RB[0], n_pad) + 1; and whether every band is a
+    yama band the warp path takes: 0 <= M <= m_pad, LB[0] = 0, LB and RB
+    nondecreasing over rows 0..M, 0 <= LB[r] <= RB[r] <= n_pad on rows
+    1..M, in rows of at least 16 bytes (n_pad >= 15, every real pad)."""
+    LB = np.asarray(LB, dtype=np.int64)
+    RB = np.asarray(RB, dtype=np.int64)
+    M = np.asarray(M, dtype=np.int64)
+    if M.shape[0] == 0:
+        return 0, True
+    rows = np.arange(1, m_pad + 1)[None, :]
+    live = rows <= M[:, None]  # rows 1..M
+    lb, rb, lbp, rbp = LB[:, 1:], RB[:, 1:], LB[:, :-1], RB[:, :-1]
+    w = np.maximum(rb, rbp) - np.minimum(lb, lbp) + 1
+    window = int(np.where(live, w, 0).max()) if m_pad else 0
+    window = max(window, int(np.clip(RB[:, 0], 0, n_pad).max()) + 1)
+    ok = ((lb >= lbp) & (rb >= rbp) & (lb >= 0) & (lb <= rb)
+          & (rb <= n_pad)) | ~live
+    monotone = bool(ok.all() and (LB[:, 0] == 0).all() and n_pad >= 15
+                    and ((M >= 0) & (M <= m_pad)).all())
+    return window, monotone
+
+
+def full_plan(LB, RB, M, m_pad: int, n_pad: int, path: str | None = None,
+              B: int | None = None) -> FullPlan:
+    """The forward kernel's path and launch shape for a bucket, from its
+    band arrays on the host (``stack_host``'s, never read back from the
+    card): the warp path where every window is at most FULL_WARP_LANES
+    lanes and every band monotone (``full_window``), P = ceil(window/32)
+    band lanes a thread and ``per_block_for(B)`` problems a block; the
+    block path otherwise. ``path`` forces one ("warp" raises where the
+    bucket is not eligible); ``B`` launches a part of the bucket (a mesh
+    row: its window is at most the bucket's)."""
+    window, monotone = full_window(LB, RB, M, m_pad, n_pad)
+    B = len(M) if B is None else B
+    warp = monotone and window <= FULL_WARP_LANES
+    if path is None:
+        path = "warp" if warp else "block"
+    if path == "block":
+        return FullPlan("block", 0, 1, B, FULL_THREADS, window)
+    if path != "warp":
+        raise ValueError(f"full_plan: no path {path!r}")
+    if not warp:
+        raise ValueError(f"full_plan: the warp path takes monotone bands in "
+                         f"windows up to {FULL_WARP_LANES} lanes, not "
+                         f"{window} lanes (monotone: {monotone})")
+    per_block = per_block_for(B)
+    return FullPlan("warp", max(1, -(-window // 32)), per_block,
+                    -(-B // per_block), 32 * per_block, window)
+
+
+def per_block_for(B: int) -> int:
+    """Warps a block of the warp-path forward and of the traceback, one
+    a problem: 2 where that still leaves a block for every SM, else 1
+    (``tools/full_sweep.py`` times 1, 2 and 4 at the bench bucket; 4
+    leaves 160 blocks for its 637 problems on 132 SMs, 28 of them with
+    two)."""
+    return 2 if B >= 2 * SMS else 1
 
 
 def yama_core(histA, a0, a1, pa, histB, b0, b1, pb, LB, RB, M, N, K, L,
-              ss_cat, go: int, ge: int, m_pad: int, n_pad: int):
+              ss_cat, go: int, ge: int, m_pad: int, n_pad: int,
+              plan: FullPlan | None = None):
     """Forward DP of one bucket: ``yama_jax._yama_core`` with its
     ``vmap`` written out as the leading dimension B.
 
@@ -147,13 +243,16 @@ def yama_core(histA, a0, a1, pa, histB, b0, b1, pb, LB, RB, M, N, K, L,
     and the last row's C, D, I at column N, each (B,) int32.
 
     Replaces the jitted ``lax.scan`` of ``multiz_tpu/ops/yama_jax.py:66``
-    with the kernel ``yama_full_dp_kernel`` of ``csrc/yama_full.cu`` on
-    CUDA tensors (one block per problem, the row's band in tiles of
-    FULL_THREADS columns; bound by the flag matrix's bytes or its band
-    cells' operations, ``full_dp_bound``, and by the longest problem's
-    chain of rows, ``full_dp_chain_bound``). On CPU tensors it runs the
-    plain version ``yama_core_reference``. ``yama_core.launches`` counts
-    kernel launches."""
+    with a kernel of ``csrc/yama_full.cu`` on CUDA tensors, on the path
+    of ``plan`` (``full_plan``; without one it is made from LB, RB and M
+    read back to the host): ``yama_full_dp_warp`` (one warp per problem,
+    its row in registers) or ``yama_full_dp_block`` (one block per
+    problem, the row's columns in tiles of FULL_THREADS). Both are bound
+    by the flag matrix's bytes or its band cells' operations
+    (``full_dp_bound``) and by the longest problem's chain of rows
+    (``full_dp_chain_bound``). On CPU tensors it runs the plain version
+    ``yama_core_reference``. ``yama_core.launches`` counts kernel
+    launches, ``yama_core.paths`` them by path."""
     ops = (histA, a0, a1, pa, histB, b0, b1, pb, LB, RB, M, N, K, L)
     dev = M.device
     if dev.type == "cpu":
@@ -169,21 +268,30 @@ def yama_core(histA, a0, a1, pa, histB, b0, b1, pb, LB, RB, M, N, K, L,
     flags = torch.empty((B, mp1, np1), dtype=U8, device=dev)
     last = torch.empty((3, B), dtype=I32, device=dev)
     if B:
-        scratch = torch.empty(B * FULL_NREC * np1, dtype=I32, device=dev)
+        if plan is None:
+            plan = full_plan(*(t.cpu().numpy() for t in (LB, RB, M)),
+                             m_pad, n_pad)
+        if plan.grid != -(-B // plan.per_block):
+            raise ValueError(f"yama_core: a plan of {plan.grid} blocks for "
+                             f"{B} problems")
+        scratch = (torch.empty(B * FULL_NREC * np1, dtype=I32, device=dev)
+                   if plan.path == "block" else None)
         lib = _build.load()
         with torch.cuda.device(dev):
             rc = lib.yama_full_dp_launch(
                 *(t.data_ptr() for t in ops), ss_cat.data_ptr(),
-                flags.data_ptr(), last.data_ptr(), scratch.data_ptr(),
-                B, m_pad, n_pad, go, ge,
+                flags.data_ptr(), last.data_ptr(),
+                None if scratch is None else scratch.data_ptr(),
+                B, m_pad, n_pad, go, ge, plan.per_thread, plan.per_block,
                 torch.cuda.current_stream(dev).cuda_stream,
             )
         _build.check(rc, "yama_full_dp_launch")
-        _build.count_launch(yama_core)
+        _build.count_launch(yama_core, plan.path)
     return (flags, *last.unbind(0))
 
 
 yama_core.launches = 0
+yama_core.paths = {"warp": 0, "block": 0}
 
 
 def _check(what, dev, pairs):
@@ -471,9 +579,10 @@ def traceback_core(flags, LB, RB, M, N, lastC, lastD, lastI,
     Replaces the jitted fixed-trip ``lax.scan`` of
     ``multiz_tpu/ops/yama_jax.py:225`` with the kernel
     ``yama_full_tb_kernel`` of ``csrc/yama_full.cu`` on CUDA tensors (one
-    thread per walk; bound by the longest walk's chain of dependent flag
-    reads, ``full_tb_chain_bound``; its bytes, ``full_tb_bound``, take
-    far less). On CPU tensors it runs the plain version
+    warp per walk, its rows' bands staged in shared memory; bound by the
+    longest walk's chain of dependent flag reads,
+    ``full_tb_chain_bound``; its bytes, ``full_tb_bound``, take far
+    less). On CPU tensors it runs the plain version
     ``traceback_reference``. ``traceback_core.launches`` counts kernel
     launches."""
     dev = M.device
@@ -490,6 +599,8 @@ def traceback_core(flags, LB, RB, M, N, lastC, lastD, lastI,
         ("lastC", lastC, (B,)), ("lastD", lastD, (B,)),
         ("lastI", lastI, (B,)),
     ])
+    if flags.data_ptr() % 16:
+        raise ValueError("traceback_core: flags are not 16-byte aligned")
     script = torch.empty((B, m_pad + n_pad), dtype=U8, device=dev)
     nedit = torch.empty(B, dtype=I32, device=dev)
     if B:
@@ -498,7 +609,8 @@ def traceback_core(flags, LB, RB, M, N, lastC, lastD, lastI,
             rc = lib.yama_full_tb_launch(
                 *(t.data_ptr() for t in (flags, LB, RB, M, N, lastC, lastD,
                                          lastI, script, nedit)),
-                B, m_pad, n_pad, torch.cuda.current_stream(dev).cuda_stream,
+                B, m_pad, n_pad, per_block_for(B),
+                torch.cuda.current_stream(dev).cuda_stream,
             )
         _build.check(rc, "yama_full_tb_launch")
         _build.count_launch(traceback_core)
@@ -581,26 +693,21 @@ def full_dp_bound(stacked: dict, m_pad: int, n_pad: int) -> tuple:
 
 def full_dp_chain_bound(stacked: dict, m_pad: int, n_pad: int) -> float:
     """Seconds: the least time of the launch's longest chain, one
-    problem's tiles in order (a row's columns to compute are its band and
-    the previous row's, in tiles of FULL_THREADS, as the kernel takes
-    them), each tile's dependent reads, operations and shuffles at the
-    least latencies of ``dp_chain_bound``/``tb_chain_bound``. A problem's
-    rows run in order in one block, so no launch is shorter, whatever the
-    card's throughput."""
-    LB, RB, live = _rows(stacked, m_pad)
-    if LB.shape[0] == 0 or m_pad == 0:
+    problem's rows 1..M in order, each the recurrence's dependent step
+    as ``yama_dp.dp_chain_bound`` counts it (DP_ROW_SHUFFLES shuffles
+    and DP_ROW_OPS operations, plus P - 1 maxima of an in-thread scan
+    over P = ceil(window/32) lanes a thread, at most 4: a wider window
+    needs no fewer steps). A problem's rows run in order, so no launch
+    is shorter, whatever the card's throughput."""
+    LB, RB, M = (stacked[k].cpu().numpy() for k in ("LB", "RB", "M"))
+    if M.shape[0] == 0:
         return 0.0
-    lb, rb = LB[:, 1:], RB[:, 1:]
-    plo = torch.cat([torch.zeros_like(LB[:, :1]), LB[:, 1:-1]], dim=1)
-    phi = torch.cat([RB[:, :1].clamp(0, n_pad), RB[:, 1:-1]], dim=1)
-    lo = torch.minimum(lb, plo).clamp(min=0)
-    hi = torch.maximum(rb, phi).clamp(max=n_pad)
-    tiles = (hi - lo + FULL_THREADS).div(FULL_THREADS, rounding_mode="floor")
-    tiles = torch.where(live[:, 1:], tiles.clamp(min=0), 0)
-    cycles = (GLOBAL_CYCLES + FULL_TILE_SMEM * SMEM_CYCLES
-              + FULL_TILE_OPS * OP_CYCLES
-              + FULL_TILE_SHUFFLES * SHUFFLE_CYCLES)
-    return int(tiles.sum(1).max()) * cycles / CLOCK_HZ
+    rows = int(np.clip(M, 0, m_pad).max())
+    window, _ = full_window(LB, RB, M, m_pad, n_pad)
+    per = min(max(1, -(-window // 32)), FULL_WARP_LANES // 32)
+    cycles = (DP_ROW_SHUFFLES * SHUFFLE_CYCLES
+              + (DP_ROW_OPS + per - 1) * OP_CYCLES)
+    return rows * cycles / CLOCK_HZ
 
 
 def full_tb_bound(nedit, stacked: dict, m_pad: int, n_pad: int) -> tuple:
@@ -619,16 +726,18 @@ def full_tb_chain_bound(nedit) -> float:
     """Seconds: the least time of the launch's longest walk, its steps
     times the least latency of one dependent step (GLOBAL_CYCLES and
     FULL_TB_STEP_OPS operations at CLOCK_HZ). A walk's steps run in
-    order on one thread, so no launch is shorter."""
+    order on one lane, so no launch is shorter."""
     steps = int(nedit.max()) if nedit.shape[0] else 0
     return steps * (GLOBAL_CYCLES + FULL_TB_STEP_OPS * OP_CYCLES) / CLOCK_HZ
 
 
-def _run_bucket(stacked: dict, st, m_pad: int, n_pad: int):
-    """(scripts, nedits) of one stacked bucket, on its tensors' device."""
+def _run_bucket(stacked: dict, st, m_pad: int, n_pad: int,
+                plan: FullPlan | None = None):
+    """(scripts, nedits) of one stacked bucket, on its tensors' device;
+    ``plan`` as ``yama_core`` takes it."""
     flags, lc, ld, li = yama_core(
         *(stacked[k] for k in STACK_KEYS), st.ss_cat, st.gap_open,
-        st.gap_extend, m_pad, n_pad,
+        st.gap_extend, m_pad, n_pad, plan,
     )
     return traceback_core(flags, stacked["LB"], stacked["RB"], stacked["M"],
                           stacked["N"], lc, ld, li, m_pad, n_pad)
@@ -678,17 +787,22 @@ def yama_batch(jobs, sp: sc.ScoreParams | None = None, device="cuda",
     results = [None] * len(jobs)
     for (m_pad, n_pad), idxs in buckets.items():
         if mesh is None:
-            stacked = stack_jobs([jobs[i] for i in idxs], m_pad, n_pad, dev)
+            host = stack_host([jobs[i] for i in idxs], m_pad, n_pad)
+            plan = full_plan(host["LB"], host["RB"], host["M"], m_pad, n_pad)
             scripts, nedits = _run_bucket(
-                stacked, from_score_params(sp, dev), m_pad, n_pad)
+                upload(host, dev), from_score_params(sp, dev), m_pad, n_pad,
+                plan)
         else:
             run = idxs + [idxs[-1]] * (pad_batch(len(idxs), mesh) - len(idxs))
-            rows = shard_stacked(
-                stack_jobs([jobs[i] for i in run], m_pad, n_pad), mesh)
+            host = stack_host([jobs[i] for i in run], m_pad, n_pad)
+            rows = shard_stacked(upload(host, "cpu"), mesh)
+            # every row holds len(run) / blocks problems of the bucket
+            plan = full_plan(host["LB"], host["RB"], host["M"], m_pad, n_pad,
+                             B=rows[0][0]["M"].shape[0])
             outs = []
             for row, devs in zip(rows, mesh.rows):
                 st = from_score_params(sp, devs[0])
-                outs.append(_run_bucket(row[0], st, m_pad, n_pad)
+                outs.append(_run_bucket(row[0], st, m_pad, n_pad, plan)
                             if mesh.band == 1
                             else _run_cols(row, st, m_pad, n_pad))
             scripts = torch.cat([o[0].cpu() for o in outs])

@@ -125,9 +125,11 @@ def kernel_counters() -> dict:
 
 
 def reset_launches() -> None:
-    """Set every kernel's launch count to 0."""
+    """Set every kernel's launch count to 0, its counts by path too."""
     for wrapper in kernel_counters().values():
         wrapper.launches = 0
+        if hasattr(wrapper, "paths"):
+            wrapper.paths = dict.fromkeys(wrapper.paths, 0)
 
 
 def launches() -> dict:

@@ -11,8 +11,10 @@ TREE (the root of a checkout whose ``multiz_tpu_torch/ops/yama_full.py``
 has ``_run_bucket`` and ``batch_fn_for``) then runs in a process of its
 own, in the order given, so ``A B B A`` shows the drift between turns:
 
-  * the bucket's forward and traceback (``_run_bucket`` on the card):
-    one warm call, then the mean of ``K`` calls between CUDA events,
+  * the bucket's forward and traceback (``_run_bucket`` on the card),
+    then each kernel alone (``yama_core``, ``traceback_core``; a tree
+    with ``full_plan`` is handed its plan, made on the host once): one
+    warm call, then the mean of ``K`` calls between CUDA events,
     enqueued while a spin kernel holds the stream (``tools.cuda_ms``);
     a path of eager torch launches is timed with its host's enqueue;
   * ``tree.tba_run`` over the dataset with ``batch_fn_for("cuda")``, one
@@ -51,12 +53,23 @@ saved = torch.load(path)
 st = from_score_params(sc.init_scores70(), "cuda")
 stacked = {k: v.cuda() for k, v in saved["stacked"].items()}
 m_pad, n_pad = saved["m_pad"], saved["n_pad"]
+kw = {}
+if hasattr(F, "full_plan"):  # a tree that plans its forward on the host
+    kw["plan"] = F.full_plan(*(saved["stacked"][k].numpy()
+                               for k in ("LB", "RB", "M")), m_pad, n_pad)
 h = hashlib.sha256()
-scripts, nedits = F._run_bucket(stacked, st, m_pad, n_pad)
+scripts, nedits = F._run_bucket(stacked, st, m_pad, n_pad, **kw)
 h.update(scripts.cpu().numpy().tobytes())
 h.update(nedits.cpu().numpy().tobytes())
-ms = cuda_ms(lambda: F._run_bucket(stacked, st, m_pad, n_pad), reps)
-del stacked, scripts, nedits
+ms = cuda_ms(lambda: F._run_bucket(stacked, st, m_pad, n_pad, **kw), reps)
+dp_call = (*(stacked[k] for k in F.STACK_KEYS), st.ss_cat, st.gap_open,
+           st.gap_extend, m_pad, n_pad)
+flags, *last = F.yama_core(*dp_call, **kw)
+tb_args = (flags, stacked["LB"], stacked["RB"], stacked["M"], stacked["N"],
+           *last, m_pad, n_pad)
+dp_ms = cuda_ms(lambda: F.yama_core(*dp_call, **kw), reps)
+tb_ms = cuda_ms(lambda: F.traceback_core(*tb_args), reps)
+del stacked, scripts, nedits, flags, last, tb_args
 torch.cuda.empty_cache()
 t0 = time.perf_counter()
 blocks = tba_run(saved["tree"], saved["pairs"], src_dir=saved["dir"],
@@ -64,7 +77,8 @@ blocks = tba_run(saved["tree"], saved["pairs"], src_dir=saved["dir"],
                  sp=sc.init_scores70())
 wall = time.perf_counter() - t0
 h.update("".join(format_ali(a) for a in blocks).encode())
-print(json.dumps({"tree": tree, "bucket_ms": ms, "tba_s": wall,
+print(json.dumps({"tree": tree, "bucket_ms": ms, "dp_ms": dp_ms,
+                  "tb_ms": tb_ms, "tba_s": wall,
                   "blocks": len(blocks), "digest": h.hexdigest()}))
 """
 

@@ -6,8 +6,9 @@ shapes. ``chip_smoke.py`` and the tests run both kernels on them. And
 the shapes of the device prep's launches in a real tba (``REAL_LAUNCHES``),
 rebuilt from a seed by ``real_launch_jobs`` (``tools/kernel_ab.py``).
 For the full-row DP's kernels (``ops/yama_full.py``): the ladder of
-bucket pads ``FULL_PAD_LADDER`` (``full_ladder_jobs``) and one problem
-far wider than any of them (``full_wide_jobs``).
+bucket pads ``FULL_PAD_LADDER`` (``full_ladder_jobs``), one problem
+far wider than any of them (``full_wide_jobs``), and the jobs of a case
+that the forward's warp path takes (``full_warp_jobs``).
 """
 
 from __future__ import annotations
@@ -138,6 +139,21 @@ def full_ladder_jobs(pad: int, seed: int = 0):
         RB = np.where(np.arange(31) < 12, W, N)
         jobs.append(_job(rng, 30, N, LB, RB))
     return jobs
+
+
+def full_warp_jobs(jobs, m_pad: int, n_pad: int):
+    """The jobs that the full-row forward's warp path takes in a bucket of
+    their own at these pads (``ops/yama_full.full_window``)."""
+    from ..ops import yama_full as F
+
+    keep = []
+    for job in jobs:
+        h = F.stack_host([job], m_pad, n_pad)
+        window, monotone = F.full_window(h["LB"], h["RB"], h["M"], m_pad,
+                                         n_pad)
+        if monotone and window <= F.FULL_WARP_LANES:
+            keep.append(job)
+    return keep
 
 
 def full_wide_jobs(seed: int = 0):

@@ -8,14 +8,21 @@ _yama_core and _traceback_core, vmapped and jitted on the CPU) on inputs
 made from a seed with numpy, at error 0, with the usual score scheme and
 one whose int32 sums and products wrap, and on walks that leave the
 matrix; the dispatchers' choice of the plain versions for CPU tensors;
-every entry point raising without a card; the bound functions'
-arithmetic; and the launch checks of the packed tools beside the new
-counters.
+every entry point raising without a card; the forward's plan
+(full_plan: the warp path and its lanes a thread, or the block path,
+from the bucket's host arrays); the kernel source's constants against
+the wrapper's; the bound functions' arithmetic; and the launch checks
+of the packed tools beside the new counters.
 
 Marked ``cuda`` (skipping where torch sees no card): each kernel against
-its plain version, bit for bit, on the pad ladder of smoke phase 3, the
-edge jobs and one problem at n_pad 16384; entry() on the card against
-entry("cpu"); and the packed tools' launch checks on a card run. On a machine with a card:
+its plain version, bit for bit: the forward on both paths, the block
+path forced on every case and the warp path on every bucket it takes
+(each case's warp-eligible jobs where the whole case is not), over the
+pad ladder of smoke phase 3, the window-width ladder, the edge jobs and
+one problem at n_pad 16384; the traceback on walks that leave the
+matrix and on walks that cross its staged windows and LB jumps; entry()
+on the card against entry("cpu"); and the packed tools' launch checks on
+a card run. On a machine with a card:
 ``python -m pytest tests/test_torch_full_kernels.py -m cuda``.
 
 Every comparison is exact (tolerance 0): the DP is integer arithmetic.
@@ -58,6 +65,15 @@ def _jobs(case):
         jobs = KC.edge_jobs()
     elif case == "wide":
         jobs = KC.full_wide_jobs()
+    elif case == "long":
+        # a 61-lane band over rows of 4,097 bytes
+        jobs = synth_jobs(3, m_lo=2100, m_hi=2500, radius=30, seed=12)
+    elif case == "bench":
+        from multiz_tpu_torch.tools.bench import bench_bucket
+
+        jobs = bench_bucket()[0]
+    elif case.startswith("fw"):
+        jobs = KC.ladder_jobs(int(case.removeprefix("fw")))
     else:
         jobs = KC.full_ladder_jobs(int(case.removeprefix("pad")))
     m_pad = _pad_to(max(A.shape[0] for A, *_ in jobs))
@@ -204,7 +220,7 @@ def _entry_points():
     from multiz_tpu_torch import entry
     from multiz_tpu_torch.ops import yama_pack as P
     from multiz_tpu_torch.tools import (
-        bench, full_ab, profile_pack, route_sweep, scaling_proxy,
+        bench, full_ab, full_sweep, profile_pack, route_sweep, scaling_proxy,
     )
 
     job = synth_jobs(1, m_lo=16, m_hi=20, seed=1)
@@ -223,6 +239,7 @@ def _entry_points():
         "scaling_proxy": lambda: scaling_proxy.measure(2),
         "route_sweep": lambda: route_sweep.sweep(),
         "full_ab": lambda: full_ab.main(["."]),
+        "full_sweep": lambda: full_sweep.main([]),
     }
 
 
@@ -230,7 +247,7 @@ def _entry_points():
     "entry", "entry_main", "dryrun_multichip", "yama_batch", "yama_full",
     "full_batch_fn_for", "yama_batch_packed", "packed_batch_fn_for",
     "packed_stream", "bench", "profile_pack",
-    "scaling_proxy", "route_sweep", "full_ab",
+    "scaling_proxy", "route_sweep", "full_ab", "full_sweep",
 ])
 def test_entry_points_raise_without_a_card(name, monkeypatch):
     """Every entry point that defaults to the card raises where torch
@@ -285,12 +302,13 @@ def test_bound_arithmetic():
     t_bytes = nbytes / HBM_BYTES_PER_S
     assert by == ("operations" if t_ops >= t_bytes else "bytes")
     assert t == pytest.approx(max(t_ops, t_bytes))
-    # row 1: columns 0..299 (its band, and row 0's 0..10), 3 tiles of
-    # 128; row 2: columns 0..300 (row 1's band reset), 3 tiles
-    tile = (F.GLOBAL_CYCLES + F.FULL_TILE_SMEM * 25 + F.FULL_TILE_OPS * 4
-            + F.FULL_TILE_SHUFFLES * 20)
+    # the longest problem's 2 rows, each the recurrence's dependent step:
+    # 8 shuffles (20 cycles) and 23 operations (4 cycles), plus 3 maxima
+    # of the in-thread scan (row 2's window, columns 0..300, 301 lanes,
+    # counted as the warp's widest, 4 lanes a thread)
+    row = 8 * 20 + (23 + 3) * 4
     assert F.full_dp_chain_bound(stacked, m_pad, n_pad) == pytest.approx(
-        6 * tile / CLOCK_HZ)
+        2 * row / CLOCK_HZ)
     nedit = torch.tensor([302, 2], dtype=torch.int32)
     t, by = F.full_tb_bound(nedit, stacked, m_pad, n_pad)
     assert by == "bytes"
@@ -298,6 +316,19 @@ def test_bound_arithmetic():
                                + B * 24) / HBM_BYTES_PER_S)
     assert F.full_tb_chain_bound(nedit) == pytest.approx(
         302 * (F.GLOBAL_CYCLES + F.FULL_TB_STEP_OPS * 4) / CLOCK_HZ)
+
+
+def test_chain_bound_at_the_bench_bucket():
+    """At the bench bucket the forward's chain bound is 1,024 rows of
+    256 cycles (2 lanes a thread), about 0.132 ms."""
+    from multiz_tpu_torch.ops.yama_dp import CLOCK_HZ
+
+    jobs, m_pad, n_pad = _jobs("bench")
+    st = F.stack_jobs(jobs, m_pad, n_pad)
+    rows = int(st["M"].max())
+    assert rows == 1024
+    assert F.full_dp_chain_bound(st, m_pad, n_pad) == pytest.approx(
+        rows * 256 / CLOCK_HZ)
 
 
 def test_record_size_follows_the_kernel_source():
@@ -314,6 +345,187 @@ def test_record_size_follows_the_kernel_source():
         F.FULL_NREC
     assert int(re.search(r"constexpr int THREADS = (\d+);", src)[1]) == \
         F.FULL_THREADS
+
+
+@pytest.mark.parametrize("name, value", [
+    ("WARP_MAX_P", F.FULL_WARP_LANES // 32),
+    ("MAX_PER_BLOCK", F.FULL_MAX_PER_BLOCK),
+    ("CHUNK", F.FULL_CHUNK),
+    ("FLUSH", F.FULL_FLUSH),
+    ("TB_ROWS", F.TB_ROWS),
+    ("TB_SLOT", F.TB_SLOT),
+    ("TB_SCRIPT", F.TB_SCRIPT),
+])
+def test_kernel_constants_follow_the_source(name, value):
+    """The warp path's and the traceback's constants in csrc/yama_full.cu
+    are the wrapper's: the widest window, problems a block, rows of an
+    operand chunk and of a flag flush, rows and band bytes a staged
+    window, script bytes staged."""
+    import os
+    import re
+
+    from multiz_tpu_torch import _build
+
+    with open(os.path.join(_build.CSRC, "yama_full.cu")) as fh:
+        src = fh.read()
+    assert int(re.search(rf"constexpr int {name} = (\d+);", src)[1]) == value
+
+
+def test_tb_slot_holds_the_widest_real_band():
+    """A staged row holds the band of any warp-path window at any
+    alignment: 128 lanes from up to 15 bytes past a 16-byte boundary, 9
+    chunks (113 lanes, the widest real band, take at most 8)."""
+    assert F.TB_SLOT % 16 == 0
+    assert F.TB_SLOT == -(-(F.FULL_WARP_LANES + 15) // 16) * 16 == 144
+    assert -(-(113 + 15) // 16) == 8
+
+
+def _host_plan(case, **kw):
+    jobs, m_pad, n_pad = _jobs(case)
+    h = F.stack_host(jobs, m_pad, n_pad)
+    return F.full_plan(h["LB"], h["RB"], h["M"], m_pad, n_pad, **kw)
+
+
+@pytest.mark.parametrize("case, path, per_thread", [
+    ("bench", "warp", 2), ("synth", "warp", 1), ("long", "warp", 2),
+    ("pad16", "warp", 1),
+    ("pad32", "warp", 2), ("edge", "warp", 3), ("fw61", "warp", 4),
+    ("fw113", "block", 0), ("pad256", "block", 0), ("pad1024", "block", 0),
+    ("pad2048", "block", 0), ("wide", "block", 0),
+])
+def test_full_plan_picks_the_path(case, path, per_thread):
+    """The bench bucket and every bucket of windows up to 128 lanes take
+    the warp path at ceil(window/32) lanes a thread (fw61: its 60-lane
+    band and a 40-column LB jump, a 101-lane window); the ladder's pad/4
+    bands and LB jumps past 128 lanes and the 16,384-column problem the
+    block path."""
+    plan = _host_plan(case)
+    assert (plan.path, plan.per_thread) == (path, per_thread)
+    assert plan.per_thread == (-(-plan.window // 32) if path == "warp" else 0)
+    jobs = _jobs(case)[0]
+    assert plan.grid == -(-len(jobs) // plan.per_block)
+    assert plan.threads == (32 * plan.per_block if path == "warp"
+                            else F.FULL_THREADS)
+    if case == "bench":
+        assert plan.per_block == 2 and plan.grid == 319
+
+
+@pytest.mark.parametrize("what", ["lb_jump", "quarter_band"])
+def test_full_plan_block_path_for_the_ladders_wide_jobs(what):
+    """Alone in a bucket, the ladder's LB jump (40 columns, a 256-lane
+    window at pad 256) and its pad/4 band (radius 64) take the block
+    path."""
+    jobs = KC.full_ladder_jobs(256)
+    job = jobs[4] if what == "lb_jump" else jobs[1]
+    LB, RB = job[2], job[3]
+    if what == "lb_jump":
+        assert LB[12] - LB[11] == 40
+    h = F.stack_host([job], 256, 256)
+    plan = F.full_plan(h["LB"], h["RB"], h["M"], 256, 256)
+    assert plan.path == "block" and plan.window > F.FULL_WARP_LANES
+
+
+def _non_monotone():
+    """A bucket whose second problem's LB steps back a column."""
+    jobs = synth_jobs(2, m_lo=30, m_hi=40, radius=8, seed=5)
+    h = F.stack_host(jobs, 64, 64)
+    r = int(h["M"][1]) // 2
+    h["LB"][1, r] = h["LB"][1, r - 1] - 1
+    return h
+
+
+def test_full_plan_block_path_for_a_non_monotone_band():
+    """A band whose LB steps back takes the block path, however narrow,
+    and the warp path cannot be forced on it."""
+    h = _non_monotone()
+    window, monotone = F.full_window(h["LB"], h["RB"], h["M"], 64, 64)
+    assert window <= F.FULL_WARP_LANES and not monotone
+    assert F.full_plan(h["LB"], h["RB"], h["M"], 64, 64).path == "block"
+    with pytest.raises(ValueError, match="warp path takes monotone"):
+        F.full_plan(h["LB"], h["RB"], h["M"], 64, 64, path="warp")
+
+
+def test_full_plan_forcing_and_batch_override():
+    """``path`` forces the block path anywhere and the warp path where it
+    is eligible; ``B`` sizes a launch of part of the bucket (a mesh row);
+    anything else raises."""
+    assert _host_plan("bench", path="block") == F.FullPlan(
+        "block", 0, 1, 637, F.FULL_THREADS, 63)
+    plan = _host_plan("bench", B=300)
+    assert (plan.path, plan.per_block, plan.grid, plan.threads) == (
+        "warp", 2, 150, 64)
+    plan = _host_plan("bench", B=200)
+    assert (plan.per_block, plan.grid, plan.threads) == (1, 200, 32)
+    with pytest.raises(ValueError, match="warp path takes"):
+        _host_plan("pad256", path="warp")
+    with pytest.raises(ValueError, match="no path"):
+        _host_plan("pad16", path="tile")
+
+
+def test_full_window_by_hand():
+    """Windows worked out by hand: row 0 alone (M = 0) spans RB[0] + 1
+    lanes; a row spans its band joined with the previous row's; rows
+    past M do not count; LB[0] != 0 or a band past n_pad is not
+    monotone."""
+    LB = np.array([[0, 0, 3, 9, 9], [0, 0, 0, 0, 0]])
+    RB = np.array([[5, 7, 20, 30, 99], [40, 40, 40, 40, 40]])
+    M = np.array([3, 0])
+    # problem 0: rows 1..3: 8, 21 and 28 lanes; problem 1: row 0, 41
+    assert F.full_window(LB, RB, M, 4, 64) == (41, True)
+    assert F.full_window(LB, RB, np.array([3, 1]), 4, 64) == (41, True)
+    assert F.full_window(LB[:1], RB[:1], M[:1], 4, 64) == (28, True)
+    bad = LB.copy()
+    bad[0, 0] = 1
+    assert F.full_window(bad, RB, M, 4, 64)[1] is False
+    assert F.full_window(LB, RB, M, 4, 25)[1] is False  # RB[3] = 30
+    assert F.full_window(LB, RB, np.array([5, 0]), 4, 200)[1] is False
+
+
+def test_yama_batch_plans_from_host_arrays(monkeypatch):
+    """yama_batch plans each bucket from stack_host's numpy arrays (it
+    never reads the card's tensors back to plan) and hands the plan to
+    the bucket's forward."""
+    jobs = synth_jobs(5, m_lo=20, m_hi=60, radius=8, seed=3)
+    seen, run = [], F._run_bucket
+    real_plan = F.full_plan
+
+    def plan(*args, **kw):
+        seen.append([type(a) for a in args[:3]])
+        return real_plan(*args, **kw)
+
+    def bucket(stacked, st, m_pad, n_pad, plan=None):
+        seen.append(plan)
+        return run(stacked, st, m_pad, n_pad, plan)
+
+    monkeypatch.setattr(F, "full_plan", plan)
+    monkeypatch.setattr(F, "_run_bucket", bucket)
+    out = F.yama_batch(jobs, device="cpu")
+    assert seen and all(t == [np.ndarray] * 3 for t in seen[::2])
+    assert all(isinstance(p, F.FullPlan) and p.path == "warp"
+               for p in seen[1::2])
+    from multiz_tpu_torch import yama as TY
+
+    for (A, B, LB, RB), got in zip(jobs, out):
+        np.testing.assert_array_equal(got, TY.yama_numpy(A, B, LB, RB))
+
+
+def test_launch_counts_by_path():
+    """A launch counts on its wrapper and, for the forward, under its
+    path; reset_launches clears both."""
+    from multiz_tpu_torch import _build, tools
+
+    saved = (F.yama_core.launches, dict(F.yama_core.paths))
+    try:
+        tools.reset_launches()
+        _build.count_launch(F.yama_core, "warp")
+        _build.count_launch(F.yama_core, "block")
+        _build.count_launch(F.yama_core, "warp")
+        assert F.yama_core.launches == 3
+        assert F.yama_core.paths == {"warp": 2, "block": 1}
+        tools.reset_launches()
+        assert F.yama_core.paths == {"warp": 0, "block": 0}
+    finally:
+        F.yama_core.launches, F.yama_core.paths = saved[0], saved[1]
 
 
 @pytest.mark.parametrize("counts, ok", [
@@ -367,20 +579,34 @@ def _card():
         pytest.skip("no CUDA device")
 
 
-def _both(case, scheme="scores70"):
-    """Each kernel against its plain version on the card for one case:
-    flags, last cells, scripts and nedit equal; every launch counted;
-    the valid jobs' replays equal to yama_numpy."""
+def _both(case, scheme="scores70", path="block", jobs=None):
+    """Each kernel against its plain version on the card for one case,
+    the forward on ``path`` (on the warp path, the case's jobs it takes):
+    flags, last cells, scripts and nedit equal; every launch counted,
+    the forward's under its path; the valid jobs' replays equal to
+    yama_numpy. ``jobs`` replaces the case's jobs (at their own pads).
+    Returns the plain traceback's nedit."""
     from multiz_tpu_torch import yama as TY
     from multiz_tpu_torch.ops.yama_pack import replay_script
 
-    jobs, m_pad, n_pad = _jobs(case)
+    if jobs is None:
+        jobs, m_pad, n_pad = _jobs(case)
+        if path == "warp":
+            jobs = KC.full_warp_jobs(jobs, m_pad, n_pad)
+    else:
+        m_pad = _pad_to(max(A.shape[0] for A, *_ in jobs))
+        n_pad = _pad_to(max(B.shape[0] for _, B, *_ in jobs))
+    assert jobs
     ss, go, ge = _scheme(scheme)
-    st = F.stack_jobs(jobs, m_pad, n_pad, "cuda")
+    host = F.stack_host(jobs, m_pad, n_pad)
+    plan = F.full_plan(host["LB"], host["RB"], host["M"], m_pad, n_pad,
+                       path=path)
+    st = F.upload(host, "cuda")
     args = [st[k] for k in F.STACK_KEYS]
     ssc = torch.from_numpy(ss).cuda()
     n_dp, n_tb = F.yama_core.launches, F.traceback_core.launches
-    got = F.yama_core(*args, ssc, go, ge, m_pad, n_pad)
+    n_path = F.yama_core.paths[path]
+    got = F.yama_core(*args, ssc, go, ge, m_pad, n_pad, plan=plan)
     want = F.yama_core_reference(*args, ssc, go, ge, m_pad, n_pad)
     tb_args = (st["LB"], st["RB"], st["M"], st["N"])
     script, nedit = F.traceback_core(got[0], *tb_args, *got[1:], m_pad, n_pad)
@@ -388,47 +614,119 @@ def _both(case, scheme="scores70"):
                                             m_pad, n_pad)
     torch.cuda.synchronize()
     assert F.yama_core.launches == n_dp + 1
+    assert F.yama_core.paths[path] == n_path + 1
     assert F.traceback_core.launches == n_tb + 1
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert torch.equal(script, rscript) and torch.equal(nedit, rnedit)
-    if scheme != "scores70":
-        return
-    sn, nn = script.cpu().numpy(), nedit.cpu().numpy()
-    for i, (A, B, LB, RB) in enumerate(jobs):
-        try:
-            ref = TY.yama_numpy(A, B, LB, RB)
-        except TY.YamaError:
-            continue
-        np.testing.assert_array_equal(replay_script(sn[i], int(nn[i]), A, B),
-                                      ref, err_msg=f"{case} job {i}")
+    if scheme == "scores70":
+        sn, nn = script.cpu().numpy(), nedit.cpu().numpy()
+        for i, (A, B, LB, RB) in enumerate(jobs):
+            try:
+                ref = TY.yama_numpy(A, B, LB, RB)
+            except TY.YamaError:
+                continue
+            np.testing.assert_array_equal(
+                replay_script(sn[i], int(nn[i]), A, B), ref,
+                err_msg=f"{case} job {i}")
+    return rnedit
+
+
+FW_CASES = [f"fw{w}" for w in KC.FW_LADDER if w <= 128]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", [f"pad{p}" for p in KC.FULL_PAD_LADDER]
-                         + ["edge", "wide", "synth"])
+                         + ["edge", "wide", "synth", "long"] + FW_CASES)
 def test_kernels_match_plain_versions(case):
+    """The block path, forced, on every case."""
     _card()
     _both(case)
 
 
 @pytest.mark.cuda
-def test_kernels_wrapping_scheme():
+@pytest.mark.parametrize("case", [f"pad{p}" for p in KC.FULL_PAD_LADDER]
+                         + ["edge", "synth", "long"] + FW_CASES)
+def test_warp_path_matches_plain_versions(case):
+    """The warp path on every case's jobs that it takes: the ladders'
+    narrow bands, M = 0, one column of B, LB jumps within 128 lanes,
+    windows of 1 to 128 lanes (1 to 4 lanes a thread), rows of 4,097
+    bytes."""
     _card()
-    _both("pad256", scheme="wrapping")
-    _both("synth", scheme="wrapping")
+    _both(case, path="warp")
 
 
 @pytest.mark.cuda
-def test_tb_kernel_on_invalid_walks():
+@pytest.mark.parametrize("path", ["warp", "block"])
+def test_kernels_wrapping_scheme(path):
     _card()
-    flags, LB, RB, M, N, last, m_pad, n_pad = _invalid_walks()
+    _both("synth", scheme="wrapping", path=path)
+    _both("pad256", scheme="wrapping", path=path)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed, B, m_pad, n_pad", [
+    (8, 6, 16, 32), (9, 37, 80, 64), (10, 5, 200, 128), (11, 3, 16, 600),
+])
+def test_tb_kernel_on_invalid_walks(seed, B, m_pad, n_pad):
+    """Random flags, bands and last cells: walks that leave the matrix,
+    wrap their rows, cross staged windows and bands past the staged
+    slot."""
+    _card()
+    flags, LB, RB, M, N, last, m_pad, n_pad = _invalid_walks(
+        B, m_pad, n_pad, seed)
     args = [torch.from_numpy(np.ascontiguousarray(a)).cuda()
             for a in (flags, LB, RB, M, N, *last)]
     got = F.traceback_core(*args, m_pad, n_pad)
     want = F.traceback_reference(*args, m_pad, n_pad)
     torch.cuda.synchronize()
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _jump_jobs(n=9, seed=4):
+    """Problems of 100 to 180 rows whose diagonal band of 61 lanes jumps
+    40 columns at row 50 (a window of 102 lanes there): walks over
+    several staged windows and across the jump."""
+    rng = np.random.default_rng(seed)
+    jobs = []
+    for _ in range(n):
+        M = int(rng.integers(100, 181))
+        N = M + 80
+        r = np.arange(M + 1)
+        jump = np.where(r < 50, 0, 40)
+        LB = np.maximum(0, r - 20) + jump
+        RB = np.minimum(N, r + 40 + jump)
+        jobs.append(KC._job(rng, M, N, LB, RB))
+    return jobs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["warp", "block"])
+def test_kernels_across_windows_and_lb_jumps(path):
+    """Walks of over 64 steps across several 32-row staged windows and a
+    40-column LB jump, after either forward path."""
+    _card()
+    jobs = _jump_jobs()
+    m_pad = _pad_to(max(A.shape[0] for A, *_ in jobs))
+    n_pad = _pad_to(max(B.shape[0] for _, B, *_ in jobs))
+    h = F.stack_host(jobs, m_pad, n_pad)
+    assert F.full_plan(h["LB"], h["RB"], h["M"], m_pad, n_pad).path == "warp"
+    nedit = _both("jump", path=path, jobs=jobs)
+    assert int(nedit.min()) > 2 * F.TB_ROWS
+
+
+def test_jump_jobs_cross_windows_on_the_warp_path():
+    """The jump jobs of the card test above: valid yama bands, warp-path
+    eligible, M past three staged windows, the LB jump inside."""
+    from multiz_tpu_torch.yama import _check_band
+
+    jobs = _jump_jobs()
+    for A, B, LB, RB in jobs:
+        _check_band(LB, RB, A.shape[0], B.shape[0])
+        assert A.shape[0] > 3 * F.TB_ROWS and LB[50] - LB[49] == 41
+    h = F.stack_host(jobs, 256, 512)
+    plan = F.full_plan(h["LB"], h["RB"], h["M"], 256, 512)
+    assert plan.path == "warp" and plan.window == 102
 
 
 @pytest.mark.cuda
