@@ -17,9 +17,12 @@ Byte-exact parity targets (reference ``file:line``):
 from __future__ import annotations
 
 import sys
+import time
 from typing import Iterator, List, Optional
 
 import numpy as np
+
+from . import trace
 
 DASH = ord("-")
 
@@ -478,7 +481,11 @@ def write_end(out) -> None:
 
 
 def format_ali(a: Ali) -> str:
-    """Byte-identical port of mafWrite (maf.c:251-294)."""
+    """Byte-identical port of mafWrite (maf.c:251-294). Where the last
+    run's trace is on (``trace.on``), a timed counter ``maf.format``."""
+    timing = trace.on
+    if timing:
+        t0 = time.perf_counter()
     parts = ["a"]
     if a.score is not None and a.score != _NO_SCORE:
         parts.append(f" score={format_score(a.score)}")
@@ -504,7 +511,10 @@ def format_ali(a: Ali) -> str:
             f"{c.strand} {c.src_size:>{srcsize_w}d} {c.text_str()}\n"
         )
     parts.append("\n")
-    return "".join(parts)
+    text = "".join(parts)
+    if timing:
+        trace.tick("maf.format", time.perf_counter() - t0)
+    return text
 
 
 def write_ali(out, a: Ali) -> None:

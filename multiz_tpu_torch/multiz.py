@@ -8,10 +8,12 @@ for byte-equality with the reference.
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import Callable, List, Optional
 
 from . import scores as sc
+from . import trace
 from .blocks import keep_ali, make_part_ali_col, separate_by_src
 from .maf import (
     Ali, col_back_over_dashes, col_fwd_over_dashes, pos2col, write_ali,
@@ -72,7 +74,12 @@ class _DeferredDP:
     ops.yama_pack.yama_batch_packed), round-1 jobs are forwarded to a
     streaming instance AS THE SCAN PLANS THEM, so padded bucket
     launches dispatch asynchronously and the device computes under the
-    host's remaining planning work; ``run()`` only pays the tail."""
+    host's remaining planning work; ``run()`` only pays the tail.
+
+    Where the run's trace is on (``trace.on``, read once here), the
+    coroutines' steps are timed counters: ``preyama.plan`` (planning a
+    job, ``next(gen)``) and ``preyama.fold`` (folding its result in,
+    ``gen.send``)."""
 
     def __init__(self, batch_fn: Callable, sp):
         self.batch_fn = batch_fn
@@ -80,23 +87,32 @@ class _DeferredDP:
         self.pending: list = []  # (gen, slot, job-or-stream-handle)
         self.results: dict = {}
         self.n = 0
+        self.timing = trace.on
         stream_cls = getattr(batch_fn, "stream_cls", None)
         self.stream = stream_cls(sp=sp) if stream_cls is not None else None
 
     def submit(self, gen) -> int:
         slot = self.n
         self.n += 1
+        timing = self.timing
+        if timing:
+            t0 = time.perf_counter()
         try:
             job = next(gen)
         except StopIteration as e:
             self.results[slot] = e.value
-        else:
-            if self.stream is not None:
-                job = self.stream.submit(job)  # -> stream handle
-            self.pending.append((gen, slot, job))
+            return slot
+        finally:
+            if timing:
+                trace.tick("preyama.plan", time.perf_counter() - t0)
+        if self.stream is not None:
+            job = self.stream.submit(job)  # -> stream handle
+        self.pending.append((gen, slot, job))
         return slot
 
+    @trace.traced("multiz.dp")
     def run(self) -> None:
+        timing = self.timing
         first = True
         while self.pending:
             if self.stream is not None and first:
@@ -108,15 +124,20 @@ class _DeferredDP:
             first = False
             nxt = []
             for (gen, slot, _), res in zip(self.pending, outs):
+                if timing:
+                    t0 = time.perf_counter()
                 try:
                     job2 = gen.send(res)
                 except StopIteration as e:
                     self.results[slot] = e.value
                 else:
                     nxt.append((gen, slot, job2))
+                if timing:
+                    trace.tick("preyama.fold", time.perf_counter() - t0)
             self.pending = nxt
 
 
+@trace.traced("multiz.scan")
 def multiz_scan(
     wk1: List[Ali],
     wk2: List[Ali],
@@ -237,6 +258,7 @@ def multiz_scan(
             a2 = pop2()
 
 
+@trace.traced("multiz")
 def multiz(
     list1: List[Ali],
     list2: List[Ali],

@@ -28,8 +28,16 @@ buffers), ``dispatch`` (enqueueing H2D, prep, both kernels and the D2H
 copy), ``device-sync`` (the wait on the launches' copy events), ``d2h``
 (the device time of the payload copies, from CUDA events; 0 on the
 CPU, where the payload is already on the host), ``replay``, and for the
-host lane ``lane-wait`` and ``lane-busy``. With ``MZ_TIME`` unset no
-timer runs.
+host lane ``lane-wait`` and ``lane-busy``. The same switch records them
+in memory as the stream's counters (``multiz_tpu_torch/trace.py``), from
+which the lines are printed: ``stream.pack``, ``stream.dispatch``,
+``stream.device-sync``, ``stream.d2h``, ``stream.replay``,
+``stream.lane-wait`` and ``lane.busy`` (the host lane's workers: seconds,
+jobs, cells), each in ``PackedDPStream.counters`` and in the process's
+``trace.counters()``; besides, the timed counter ``stream.submit`` (a
+job's ``submit``, ``trace.counters()`` only) and the span
+``stream.finish`` (``trace.spans()``). With ``MZ_TIME`` unset no timer
+runs and nothing is recorded.
 """
 
 from __future__ import annotations
@@ -43,6 +51,7 @@ import numpy as np
 import torch
 
 from .. import scores as sc
+from .. import trace
 from .. import yama as Y
 from ..parallel.sharding import require_device
 from ..scores import from_score_params
@@ -104,6 +113,12 @@ def routing_defaults(device) -> dict:
     ROUTING_DEFAULTS, each value replaced by its variable's where set."""
     row = ROUTING_DEFAULTS[torch.device(device).type]
     return {k: int(os.environ.get(ROUTING_ENV[k], v)) for k, v in row.items()}
+
+
+def host_lane_threads() -> int:
+    """Worker threads of a stream's host lane (``MZ_HOST_DP_THREADS``,
+    2 by default; 0 turns the lane off)."""
+    return int(os.environ.get("MZ_HOST_DP_THREADS", "2"))
 
 
 def _pad_to(n: int) -> int:
@@ -307,7 +322,7 @@ class PackedDPStream:
                       for u in ("jobs", "cells")}
         self.autoflush = autoflush
         self.timing = bool(env("MZ_TIME"))
-        self._pack_s = self._disp_s = 0.0
+        self.counters = trace.Counters()
         # ---- host DP lane ----
         # Jobs of at most host_job_cells cells run on the native host
         # DP, which releases the GIL, on worker threads beside the
@@ -319,16 +334,13 @@ class PackedDPStream:
             host_lane_cells if host_lane_cells is not None
             else int(env("MZ_HOST_LANE_CELLS", str(1 << 60)))
         )
-        nthreads = int(env("MZ_HOST_DP_THREADS", "2"))
+        nthreads = host_lane_threads()
         self._lock = threading.Lock()
         self._host_pool = None
         self._host_futs: list = []
         self._host_backlog = 0  # cells submitted to the lane, not yet done
         self._host_chunk: list = []
         self._host_chunk_jobs = int(env("MZ_HOST_CHUNK", "96"))
-        self._lane_busy_s = 0.0
-        self._lane_jobs = 0
-        self._lane_cells = 0
         if nthreads > 0:
             from concurrent.futures import ThreadPoolExecutor
 
@@ -377,22 +389,28 @@ class PackedDPStream:
             outs.append(out)
         ss_cat, cat = self.sp.ss_cat, sc.BYTE2CAT
         go, ge = int(self.sp.gap_open), int(self.sp.gap_extend)
+        timing = self.timing
 
         def work():
-            t0 = time.perf_counter()
+            if timing:
+                t0 = time.perf_counter()
             try:
                 return many(probs, ss_cat, cat, go, ge)
             finally:
                 with self._lock:
                     self._host_backlog -= total
-                    self._lane_busy_s += time.perf_counter() - t0
-                    self._lane_jobs += len(chunk)
-                    self._lane_cells += total
+                if timing:
+                    self.counters.add("lane.busy", time.perf_counter() - t0,
+                                      count=len(chunk), cells=total,
+                                      charge=False)
 
         self._host_futs.append((chunk, outs, self._host_pool.submit(work)))
 
     # ---- device buckets ----
     def submit(self, job) -> int:
+        timing = self.timing
+        if timing:
+            t0 = time.perf_counter()
         A, B, LB, RB = job
         slot = self.n
         self.n += 1
@@ -407,25 +425,28 @@ class PackedDPStream:
             self.stats["fallback_jobs"] += 1
             self.stats["fallback_cells"] += cells
             self.results[slot] = yama_numpy(A, B, LBa, RBa, sp=self.sp)
-            return slot
-        if (
+        elif (
             self._host_pool is not None
             and cells <= self.host_job_cells
             and self._host_backlog < self.host_lane_cells
         ):
             self._host_submit(slot, A, B, LBa, RBa, cells)
-            return slot
-        self.jobs[slot] = (A, B, LBa, RBa)
-        key = bucket_key(M, N, K, L, cw)
-        self.buckets.setdefault(key, []).append(slot)
-        c = self.bucket_cells.get(key, 0) + cells
-        self.bucket_cells[key] = c
-        if self.autoflush and c >= self.flush_cells:
-            self._flush(key)
+        else:
+            self.jobs[slot] = (A, B, LBa, RBa)
+            key = bucket_key(M, N, K, L, cw)
+            self.buckets.setdefault(key, []).append(slot)
+            c = self.bucket_cells.get(key, 0) + cells
+            self.bucket_cells[key] = c
+            if self.autoflush and c >= self.flush_cells:
+                self._flush(key, charge=False)
+        if timing:
+            trace.tick("stream.submit", time.perf_counter() - t0)
         return slot
 
-    def _flush(self, key) -> None:
-        """Pack and launch one bucket's jobs (asynchronously on CUDA)."""
+    def _flush(self, key, charge: bool = True) -> None:
+        """Pack and launch one bucket's jobs (asynchronously on CUDA).
+        ``charge``: charge the pack and dispatch counters to the open
+        span (False inside ``submit``, whose own counter holds them)."""
         slots = self.buckets.pop(key)
         self.bucket_cells.pop(key, None)
         self.dispatched.add(key)
@@ -437,9 +458,9 @@ class PackedDPStream:
         )
         cap = launch_cap(m_pad)
         for lo in range(0, len(slots), cap):
-            self._launch(slots[lo : lo + cap], m_pad, n_pad, Kp, Lp)
+            self._launch(slots[lo : lo + cap], m_pad, n_pad, Kp, Lp, charge)
 
-    def _launch(self, part, m_pad, n_pad, Kp, Lp) -> None:
+    def _launch(self, part, m_pad, n_pad, Kp, Lp, charge) -> None:
         cuda = self.device.type == "cuda"
         timing = self.timing
         if timing:
@@ -448,7 +469,7 @@ class PackedDPStream:
                          pin=cuda)
         if timing:
             t1 = time.perf_counter()
-            self._pack_s += t1 - t0
+            self.counters.add("stream.pack", t1 - t0, charge=charge)
         for slot in part:
             self.stats["device_jobs"] += 1
             self.stats["device_cells"] += self.job_cells[slot]
@@ -470,11 +491,13 @@ class PackedDPStream:
             payload = out
         self.pending.append((part, payload, done, start))
         if timing:
-            self._disp_s += time.perf_counter() - t1
+            self.counters.add("stream.dispatch", time.perf_counter() - t1,
+                              charge=charge)
 
     def finish(self) -> list:
         """Launch or host-route the leftovers, wait, replay; returns the
         results in submission order and shuts the host lane down."""
+        span = trace.begin("stream.finish") if self.timing else None
         try:
             return self._finish()
         finally:
@@ -483,6 +506,8 @@ class PackedDPStream:
             with _stats_lock:
                 for k, v in self.stats.items():
                     route_stats[k] += v
+            if span is not None:
+                trace.end(span)
 
     def _finish(self) -> list:
         fb_jobs = self.stats["fallback_jobs"]
@@ -514,8 +539,7 @@ class PackedDPStream:
                 self._flush(key)
         if self._host_pool is not None:
             self._host_flush()  # partial chunk
-        timing = self.timing
-        sync_s = replay_s = 0.0
+        timing, ctr = self.timing, self.counters
         # launch by launch: replaying one overlaps the device's work on
         # the next
         for slots, payload, done, _ in self.pending:
@@ -525,20 +549,26 @@ class PackedDPStream:
                 done.synchronize()
             if timing:
                 t1 = time.perf_counter()
-                sync_s += t1 - t0
+                ctr.add("stream.device-sync", t1 - t0)
             _replay_payload_slots(payload.numpy(), slots, self.jobs,
                                   self.results)
             if timing:
-                replay_s += time.perf_counter() - t1
+                ctr.add("stream.replay", time.perf_counter() - t1)
         if timing:
-            d2h = sum(start.elapsed_time(done) for _, _, done, start
-                      in self.pending if start is not None) / 1000.0
-            print(f"[MZ_TIME] pack={self._pack_s:.4f} "
-                  f"dispatch={self._disp_s:.4f}", flush=True)
-            print(f"[MZ_TIME] device-sync={sync_s:.4f} d2h={d2h:.4f} "
+            # device time, charged to no host span
+            ctr.add("stream.d2h", sum(
+                start.elapsed_time(done) for _, _, done, start
+                in self.pending if start is not None) / 1000.0,
+                count=len(self.pending), charge=False)
+            sec = {k: ctr.get("stream." + k).seconds for k in (
+                "pack", "dispatch", "device-sync", "d2h", "replay")}
+            print(f"[MZ_TIME] pack={sec['pack']:.4f} "
+                  f"dispatch={sec['dispatch']:.4f}", flush=True)
+            print(f"[MZ_TIME] device-sync={sec['device-sync']:.4f} "
+                  f"d2h={sec['d2h']:.4f} "
                   f"launches={[len(p) for p, *_ in self.pending]}",
                   flush=True)
-            print(f"[MZ_TIME] replay={replay_s:.4f}", flush=True)
+            print(f"[MZ_TIME] replay={sec['replay']:.4f}", flush=True)
         self.pending = []
         futs, self._host_futs = self._host_futs, []
         if timing and futs:
@@ -551,12 +581,12 @@ class PackedDPStream:
             for (slot, *_), out, ne in zip(chunk, outs, nedits):
                 self.results[slot] = out[:ne]
         if timing and futs:
-            with self._lock:
-                busy, jobs, cells = (self._lane_busy_s, self._lane_jobs,
-                                     self._lane_cells)
-            print(f"[MZ_TIME] lane-wait={time.perf_counter() - t0:.4f} "
-                  f"lane-busy={busy:.4f} jobs={jobs} cells={cells}",
-                  flush=True)
+            ctr.add("stream.lane-wait", time.perf_counter() - t0)
+            busy = ctr.get("lane.busy")
+            print(f"[MZ_TIME] lane-wait="
+                  f"{ctr.get('stream.lane-wait').seconds:.4f} "
+                  f"lane-busy={busy.seconds:.4f} jobs={busy.count} "
+                  f"cells={busy.cells}", flush=True)
         return [self.results[i] for i in range(self.n)]
 
 

@@ -183,12 +183,13 @@ def tba_run_sharded(
                          f"custom dp_fn ({cfg.dp_fn!r}) cannot be sent")
     sp = sc.current if sp is None else sp
     cfg_fields = {f: getattr(cfg, f) for f in WORKER_CFG_FIELDS}
-    import time
-
     species = _species_of(tree)
     tmp = work_dir or tempfile.mkdtemp(prefix="mz_shards_")
+    # On a pod the staging phase does not exist: the reference
+    # workflow's inputs are already laid out per chromosome, and each
+    # host reads only its own slice. Here it is a one-time
+    # single-threaded cost of the proxy.
     tasks = []
-    t0 = time.perf_counter()
     for i, shard in enumerate(shards):
         d = os.path.join(tmp, f"shard{i}")
         os.makedirs(d, exist_ok=True)
@@ -197,24 +198,12 @@ def tba_run_sharded(
             (tree, tuple(pair_files), d, suffix, ref, aligner, sp,
              cfg_fields)
         )
-    t1 = time.perf_counter()
     # spawn: workers must not inherit the parent's CUDA state
     import multiprocessing as mp
 
     ctx = mp.get_context("spawn")
     with ctx.Pool(processes=len(tasks)) as pool:
         payloads = pool.map(_worker_main, tasks)
-    if os.environ.get("MZ_TIME"):
-        print(
-            f"[MZ_TIME] shard-stage={t1 - t0:.2f}s "
-            f"workers={time.perf_counter() - t1:.2f}s "
-            f"nshards={len(tasks)}",
-            flush=True,
-        )
-    # On a pod the staging phase does not exist: the reference
-    # workflow's inputs are already laid out per chromosome, and each
-    # host reads only its own slice. Here it is a measured, one-time
-    # single-threaded cost of the proxy.
     out: List[Ali] = []
     for payload in payloads:
         out.extend(

@@ -11,6 +11,11 @@ Comment/header lines of intermediate files are not modeled: the reference's
 `grep -v eof` / `grep -v maf` concatenations make them leak into outputs in
 pid-dependent ways, so equality is defined over block lines (every '#' line
 is provenance, not data).
+
+With ``MZ_TIME`` set, a run records its spans (``trace.py``): the root
+``tba`` or ``roast``, ``tba.merge`` a tree node, ``maf.read`` a pair file
+parsed, ``maf_project``, ``threading.pair2tb`` / ``.get_covered`` /
+``.strip_top`` a tool call, and ``multiz`` (with ``multic``'s calls).
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Tuple
 
 from . import scores as sc
+from . import trace
 from .blocks import flip_comps, separate_by_src
 from .maf import Ali, read_maf
 from .maf_project import project
@@ -110,6 +116,7 @@ def _cp(alis: Blocks) -> Blocks:
     return [a.copy_shared() for a in alis]
 
 
+@trace.traced("maf_project")
 def t_project(alis: Blocks, target: str, with_others: bool,
               sp=None) -> Tuple[Blocks, Blocks]:
     """maf_project invocation; ``with_others`` = an other-mafs file was
@@ -132,6 +139,7 @@ def t_multiz(l1: Blocks, l2: Blocks, v: int, cfg: MultizConfig,
     return main, u1, u2
 
 
+@trace.traced("multiz")
 def t_multic(l1: Blocks, l2: Blocks, v: int, cfg: MultizConfig,
              sp=None) -> Tuple[Blocks, Blocks, Blocks]:
     """multic with the multiz argv shape (tba.c:17-18: P=multic swaps the
@@ -148,6 +156,7 @@ def t_multic(l1: Blocks, l2: Blocks, v: int, cfg: MultizConfig,
     return main, u1, u2
 
 
+@trace.traced("threading.pair2tb")
 def t_pair2tb(alis: Blocks, seq1: str, seq2: str) -> Blocks:
     """Consumes ``alis`` (one internal snapshot keeps the pass-through
     copies intact while get_maf_between/flip walk and mutate)."""
@@ -159,6 +168,7 @@ def t_pair2tb(alis: Blocks, seq1: str, seq2: str) -> Blocks:
     return out
 
 
+@trace.traced("threading.get_covered")
 def t_get_covered(l1: Blocks, l2: Blocks, sp=None) -> Blocks:
     """Consumes ``l1``/``l2`` (the lists; emitted blocks are fresh)."""
     out: Blocks = []
@@ -171,6 +181,7 @@ def t_get_covered(l1: Blocks, l2: Blocks, sp=None) -> Blocks:
     return out
 
 
+@trace.traced("threading.strip_top")
 def t_strip_top(alis: Blocks, sp=None) -> Blocks:
     """get_rid_of_top (tba.c:46-70): drop the top row of every multi-row
     block, rescore; single-row blocks vanish. Consumes ``alis``."""
@@ -216,7 +227,8 @@ class Roast:
         name = f"{a}.{b}{self.suffix}"
         if name not in self.pair_files:
             return None
-        return read_maf(os.path.join(self.src_dir, name), verbose=False)
+        with trace.span("maf.read"):
+            return read_maf(os.path.join(self.src_dir, name), verbose=False)
 
     def _on_internal(self, left: TreeNode, right: TreeNode, nid: int):
         # speciesTree.c:76-81: mv child outputs into left/right.maf<id>
@@ -299,8 +311,9 @@ def roast_run(ref, tree, pair_files, src_dir=".", cfg=None, suffix=".sing.maf",
     if _gc_was:
         gc.disable()  # see tba_run: no cycles, ~20% of wall in GC scans
     try:
-        return _roast_run_inner(ref, tree, pair_files, src_dir, cfg,
-                                suffix, sp, aligner)
+        with trace.run("roast"):
+            return _roast_run_inner(ref, tree, pair_files, src_dir, cfg,
+                                    suffix, sp, aligner)
     finally:
         if _gc_was:
             gc.enable()
@@ -371,9 +384,10 @@ class Tba:
         # needs fresh Ali/Comp wrappers but not fresh text buffers).
         cached = self._pair_cache.get(name)
         if cached is None:
-            cached = read_maf(
-                os.path.join(self.src_dir, name), verbose=False
-            )
+            with trace.span("maf.read"):
+                cached = read_maf(
+                    os.path.join(self.src_dir, name), verbose=False
+                )
             self._pair_cache[name] = cached
         return [a_.copy_shared() for a_ in cached]
 
@@ -423,7 +437,12 @@ class Tba:
     def _merge_data(self, nid: int, n1s, n2s, swap: bool):
         """The data half of tba_merge (tba.c:144-276); touches only this
         node's left/right/tba entries, so same-depth merges can run
-        concurrently (see tba_run parallel=)."""
+        concurrently (see tba_run parallel=). A span ``tba.merge``."""
+        with trace.span("tba.merge", nid=nid, left=tuple(n1s),
+                        right=tuple(n2s)):
+            self._merge_nodes(nid, n1s, n2s, swap)
+
+    def _merge_nodes(self, nid: int, n1s, n2s, swap: bool):
         sp = self.sp
         cfg = self.cfg
         REF = self.ref
@@ -806,8 +825,9 @@ def tba_run(tree, pair_files, src_dir=".", cfg=None, suffix=".sing.maf",
     if _gc_was:
         gc.disable()
     try:
-        return _tba_run_inner(tree, pair_files, src_dir, cfg, suffix,
-                              ref, sp, aligner, parallel)
+        with trace.run("tba"):
+            return _tba_run_inner(tree, pair_files, src_dir, cfg, suffix,
+                                  ref, sp, aligner, parallel)
     finally:
         if _gc_was:
             gc.enable()
@@ -846,6 +866,7 @@ def _tba_run_inner(tree, pair_files, src_dir, cfg, suffix, ref, sp,
     _, last = parse_species_tree(eng.tree, record, on_internal=None)
 
     events = {t[0]: threading.Event() for t in tasks}
+    root = trace.current()  # the run's root span, for the merge threads
 
     failed: dict[int, BaseException] = {}
 
@@ -879,7 +900,8 @@ def _tba_run_inner(tree, pair_files, src_dir, cfg, suffix, ref, sp,
                 eng.left[nid] = left
                 eng.right[nid] = right
                 eng.tba[nid] = []
-                eng._merge_data(nid, n1s, n2s, swap)
+                with trace.attach(root):
+                    eng._merge_data(nid, n1s, n2s, swap)
                 if had[0] or had[1]:
                     eng.tba[nid].extend(eng.left.get(nid, []))
                     eng.tba[nid].extend(eng.right.get(nid, []))

@@ -81,6 +81,7 @@ def test_host_lane_backlog_and_stats_settle(monkeypatch):
     and more workers than cores, end exact: a lost update would leave
     the backlog off zero or a count short."""
     jobs = synth_jobs(60, m_lo=16, m_hi=64, radius=8, seed=31)
+    monkeypatch.setenv("MZ_TIME", "1")  # the lane's counters record
     st = _lane_stream(monkeypatch, threads=2 * (os.cpu_count() or 4))
     old = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
@@ -92,7 +93,8 @@ def test_host_lane_backlog_and_stats_settle(monkeypatch):
         sys.setswitchinterval(old)
     cells = sum(st.job_cells.values())
     assert st._host_backlog == 0
-    assert (st._lane_jobs, st._lane_cells) == (len(jobs), cells)
+    lane = st.counters.get("lane.busy")
+    assert (lane.count, lane.cells) == (len(jobs), cells)
     assert (st.stats["host_jobs"], st.stats["host_cells"]) == (len(jobs),
                                                                 cells)
     for (A, B, LB, RB), out in zip(jobs, got):
