@@ -3,7 +3,9 @@
 Vectorized re-implementation of the reference's multi_util.c / maf.c block
 operations (cited per function). Operates on multiz_tpu.maf.Ali/Comp with
 numpy uint8 texts; all coordinate recomputation uses cumulative-sum position
-maps instead of per-character scans.
+maps instead of per-character scans. The merge scan's cuts (``keep_ali``,
+``make_part_ali_col``, ``nd_col``, ``nondash_before``) are one native pass
+each over a block's rows, with the numpy code as their fallback.
 """
 
 from __future__ import annotations
@@ -14,6 +16,13 @@ import numpy as np
 
 from . import scores as sc
 from .maf import Ali, Comp, DASH, col_back_over_dashes, pos2col
+
+try:  # native block cuts (see native/mzcore.cpp keep_cut, part_cut, nd_col)
+    from .native import load as _load_native
+
+    _mzcore = _load_native()
+except Exception:
+    _mzcore = None
 
 # DNA complement table, byte-for-byte from multi_util.c:34-41 (note: '-' maps
 # to '-', unmapped characters map to ' ').
@@ -110,12 +119,51 @@ def make_part_ali(a: Ali, cbeg: int, cend: int,
     return out
 
 
+def _pm_of(c: Comp) -> Optional[np.ndarray]:
+    """c's cached position map where it is current, else None."""
+    pm = c._pm
+    return pm[1] if pm is not None and pm[0] is c.text else None
+
+
 def make_part_ali_col(a: Ali, cbeg: int, cend: int,
-                      sp: sc.ScoreParams | None = None) -> Optional[Ali]:
+                      sp: sc.ScoreParams | None = None,
+                      tally: Optional[list] = None) -> Optional[Ali]:
     """make_part_ali_col (multi_util.c:570-617): slice columns, drop dash
-    rows, remove dash columns, rescore."""
+    rows, remove dash columns, rescore. One native pass over the rows
+    (``part_cut``) where the runtime is built; ``tally[native] += 1``."""
     if cend - cbeg + 1 == 0:
         return None
+    cut = None
+    if _mzcore is not None:
+        if sp is None:
+            sp = sc.current
+        comps = a.comps
+        cut = _mzcore.part_cut([c.text for c in comps],
+                               [_pm_of(c) for c in comps], cbeg, cend,
+                               sp.ss, sp.gop)
+    if tally is not None:
+        tally[cut is not None] += 1
+    if cut is None:
+        return _make_part_ali_col_numpy(a, cbeg, cend, sp)
+    befores, sizes, mask, score = cut
+    keep = None if mask is None else np.frombuffer(mask, dtype=np.bool_)
+    out = Ali()
+    for c, before, size in zip(a.comps, befores, sizes):
+        if size == 0:
+            continue
+        text = c.text[cbeg : cend + 1]  # view: no memcpy
+        nc = c.copy(text=text if keep is None else text[keep])
+        nc.start = c.start + before
+        nc.size = size
+        out.comps.append(nc)
+    if not out.comps:
+        return None
+    out.score = float(score)
+    return out
+
+
+def _make_part_ali_col_numpy(a: Ali, cbeg: int, cend: int,
+                             sp: sc.ScoreParams | None) -> Optional[Ali]:
     out = Ali()
     for c in a.comps:
         pm = c.pos_map()
@@ -164,34 +212,42 @@ def part_ali_by_pos(a: Ali, beg: int, end: int,
     return out
 
 
-def keep_ali(a: Ali, beg: int, sp: sc.ScoreParams | None = None) -> Ali:
+def keep_ali(a: Ali, beg: int, sp: sc.ScoreParams | None = None,
+             tally: Optional[list] = None) -> Ali:
     """Truncate a block to start at top-row position beg
     (multi_util.c:468-511). Returns a NEW Ali; the input block and its
     comps are left intact — deferred DP coroutines hold references to
     scan-time blocks, and this non-mutating contract is what lets them
-    skip per-overlap snapshot copies (preyama.pre_yama_gen)."""
-    top = a.comps[0]
-    col_beg = col_back_over_dashes(top, beg)
+    skip per-overlap snapshot copies (preyama.pre_yama_gen).
+
+    The cut column and each row's count before it come from one native
+    pass (``keep_cut``) where the runtime is built: O(1) from a row's
+    current position map, else a byte count up to the cut, so a block
+    truncated many times never pays O(length) a cut. The child's
+    coordinate caches start empty. ``tally[native] += 1``."""
+    comps = a.comps
+    top = comps[0]
+    k = beg - top.start
+    cut = None
+    if _mzcore is not None and 0 <= k < top.size:  # else the numpy raises
+        nd = top._nd
+        cut = _mzcore.keep_cut(
+            [c.text for c in comps], [_pm_of(c) for c in comps],
+            nd[1] if nd is not None and nd[0] is top.text else None, k)
+    if tally is not None:
+        tally[cut is not None] += 1
+    if cut is None:
+        col_beg = col_back_over_dashes(top, beg)
+        counts = [c.nondash_before(col_beg) for c in comps]
+    else:
+        col_beg, counts = cut
     new_comps = []
-    for c in a.comps:
-        count = c.nondash_before(col_beg)
+    for c, count in zip(comps, counts):
         if c.size - count < 1:
             continue
-        text = c.text
-        nc = c.copy(text=text[col_beg:])  # view: no memcpy
+        nc = c.copy(text=c.text[col_beg:])  # view: no memcpy
         nc.start += count
         nc.size -= count
-        # Derive the child's coordinate caches from the parent's by
-        # offset arithmetic instead of re-scanning the text: blocks are
-        # truncated repeatedly by the merge scan and the repeated
-        # cumsum/flatnonzero over fresh views dominates at high row
-        # counts. (nondash_before above just forced the parent's pm.)
-        pm = c._pm
-        if pm is not None and pm[0] is text:
-            nc._pm = (nc.text, pm[1][col_beg:] - count)
-        nd = c._nd
-        if nd is not None and nd[0] is text:
-            nc._nd = (nc.text, nd[1][count:] - col_beg)
         new_comps.append(nc)
     out = Ali(comps=new_comps)
     if new_comps:
@@ -202,6 +258,38 @@ def keep_ali(a: Ali, beg: int, sp: sc.ScoreParams | None = None) -> Ali:
             lambda b: sc.score_range(b, 0, b.text_size, sp=sp)
         )
     return out
+
+
+def nd_col(c: Comp, k: int, tally: Optional[list] = None) -> int:
+    """Column of c's (k+1)-th non-dash char, ``pos2col(c, c.start + k)``;
+    ``len(c.text)`` where k == c.size, so that ``nd_col(c, k + 1) - 1`` is
+    the C's walk right from the (k+1)-th over dash columns (multiz.c:
+    117-133). Natively a scan from the row's nearer end (``nd_col``),
+    with no nd_idx over the whole row; ``tally[native] += 1``."""
+    col = None
+    if _mzcore is not None:
+        col = _mzcore.nd_col(c.text, k, c.size)
+    if tally is not None:
+        tally[col is not None] += 1
+    if col is not None:
+        return col
+    if k == c.size:
+        return int(c.text.shape[0])
+    return pos2col(c, c.start + k)
+
+
+def nondash_before(c: Comp, col: int) -> int:
+    """``c.nondash_before(col)`` without building the row's position
+    map: O(1) from the map where it is current, else one native byte
+    count (``nondash_count``)."""
+    pm = c._pm
+    if pm is not None and pm[0] is c.text:
+        return 0 if col <= 0 else int(pm[1][col - 1])
+    if _mzcore is not None:
+        n = _mzcore.nondash_count(c.text, col)
+        if n is not None:
+            return n
+    return c.nondash_before(col)
 
 
 def sort_by_top_start(alis: List[Ali]) -> List[Ali]:

@@ -246,8 +246,9 @@ def pos2col(comp: Comp, pos: int) -> int:
 def col_back_over_dashes(comp: Comp, pos: int) -> int:
     """pos2col(comp, pos), then walk left over dash columns: the column
     just after the previous non-dash char (0 if none). Replaces the
-    per-character ``while t[cb-1] == '-': cb -= 1`` walks of the merge
-    scan (multiz.c:120-122) with two O(1) lookups."""
+    per-character ``while t[cb-1] == '-': cb -= 1`` walk of the C
+    (multiz.c:120-122) with two O(1) lookups (``blocks.keep_ali``'s
+    numpy cut)."""
     k = pos - comp.start
     if k < 0 or k >= comp.size:
         raise ValueError(
@@ -256,20 +257,6 @@ def col_back_over_dashes(comp: Comp, pos: int) -> int:
     if k == 0:
         return 0
     return int(comp.nd_idx()[k - 1]) + 1
-
-
-def col_fwd_over_dashes(comp: Comp, pos: int) -> int:
-    """pos2col(comp, pos), then walk right over dash columns: the column
-    just before the next non-dash char (text_size-1 if none)."""
-    k = pos - comp.start
-    if k < 0 or k >= comp.size:
-        raise ValueError(
-            f"pos2col: {pos} not in {comp.start}-{comp.start + comp.size - 1}"
-        )
-    nd = comp.nd_idx()
-    if k + 1 >= nd.shape[0]:
-        return int(comp.text.shape[0]) - 1
-    return int(nd[k + 1]) - 1
 
 
 def col2pos_after(comp: Comp, col: int) -> int:

@@ -14,10 +14,8 @@ from typing import Callable, List, Optional
 
 from . import scores as sc
 from . import trace
-from .blocks import keep_ali, make_part_ali_col, separate_by_src
-from .maf import (
-    Ali, col_back_over_dashes, col_fwd_over_dashes, pos2col, write_ali,
-)
+from .blocks import keep_ali, make_part_ali_col, nd_col, separate_by_src
+from .maf import Ali, write_ali
 from .preyama import pre_yama, pre_yama_gen
 from .yama import yama_numpy
 
@@ -149,8 +147,13 @@ def multiz_scan(
     sp: sc.ScoreParams | None = None,
     dp_submit: Optional[Callable] = None,
 ) -> None:
-    """The two-pointer merge scan (multiz.c:60-177)."""
+    """The two-pointer merge scan (multiz.c:60-177).
+
+    Its block cuts (``keep_ali``, ``make_part_ali_col``, ``nd_col``) are
+    tallied, native and numpy, and added once at the end as the counters
+    ``multiz.cut`` and ``multiz.cut-numpy`` where the trace is on."""
     i1 = i2 = 0
+    tally = [0, 0]  # cuts: [numpy, native]
 
     def pop1():
         nonlocal i1
@@ -195,29 +198,28 @@ def multiz_scan(
         beg2 = a2.comps[0].start
         end2 = a2.comps[0].end - 1
 
-        # uncovered front flank (multiz.c:117-133); the per-character
-        # dash walks of the C become O(1) nd_idx lookups
+        # uncovered front flank (multiz.c:117-133): from the row's
+        # first column (the dash walk back from its first base ends at
+        # 0) to the column before its next base after beg2 - 1
         if beg1 < beg2 and beg2 - beg1 >= cfg.min_output_wid and w1.fh:
-            cb = col_back_over_dashes(a1.comps[0], beg1)
-            ce = col_fwd_over_dashes(a1.comps[0], beg2 - 1)
-            w1.write_part(make_part_ali_col(a1, cb, ce, sp=sp))
+            ce = nd_col(a1.comps[0], beg2 - beg1, tally) - 1
+            w1.write_part(make_part_ali_col(a1, 0, ce, sp, tally))
         elif beg2 < beg1 and beg1 - beg2 >= cfg.min_output_wid and w2.fh:
-            cb = col_back_over_dashes(a2.comps[0], beg2)
-            ce = col_fwd_over_dashes(a2.comps[0], beg1 - 1)
-            w2.write_part(make_part_ali_col(a2, cb, ce, sp=sp))
+            ce = nd_col(a2.comps[0], beg1 - beg2, tally) - 1
+            w2.write_part(make_part_ali_col(a2, 0, ce, sp, tally))
 
         beg = max(beg1, beg2)
         end = min(end1, end2)
 
         # leading gap columns before the first base (multiz.c:139-148)
         if beg == beg1:
-            cb = pos2col(a1.comps[0], beg1)
+            cb = nd_col(a1.comps[0], 0, tally)
             if cb != 0 and w1.fh:
-                w1.write_part(make_part_ali_col(a1, 0, cb - 1, sp=sp))
+                w1.write_part(make_part_ali_col(a1, 0, cb - 1, sp, tally))
         if beg == beg2:
-            cb = pos2col(a2.comps[0], beg2)
+            cb = nd_col(a2.comps[0], 0, tally)
             if cb != 0 and w2.fh:
-                w2.write_part(make_part_ali_col(a2, 0, cb - 1, sp=sp))
+                w2.write_part(make_part_ali_col(a2, 0, cb - 1, sp, tally))
 
         if dp_submit is not None:
             dp_submit(
@@ -238,24 +240,26 @@ def multiz_scan(
                 out(new_ali)
 
         if end1 < end2:
-            a2 = keep_ali(a2, end1 + 1, sp=sp)
+            a2 = keep_ali(a2, end1 + 1, sp, tally)
         if end2 < end1:
-            a1 = keep_ali(a1, end2 + 1, sp=sp)
+            a1 = keep_ali(a1, end2 + 1, sp, tally)
 
+        # trailing gap columns after the last base (end1 is a1's last)
         if end1 <= end2:
-            ce = pos2col(a1.comps[0], end1)
+            ce = nd_col(a1.comps[0], a1.comps[0].size - 1, tally)
             if ce < a1.text_size - 1 and w1.fh:
-                w1.write_part(
-                    make_part_ali_col(a1, ce + 1, a1.text_size - 1, sp=sp)
-                )
+                w1.write_part(make_part_ali_col(
+                    a1, ce + 1, a1.text_size - 1, sp, tally))
             a1 = pop1()
         if end2 <= end1:
-            ce = pos2col(a2.comps[0], end2)
+            ce = nd_col(a2.comps[0], a2.comps[0].size - 1, tally)
             if ce < a2.text_size - 1 and w2.fh:
-                w2.write_part(
-                    make_part_ali_col(a2, ce + 1, a2.text_size - 1, sp=sp)
-                )
+                w2.write_part(make_part_ali_col(
+                    a2, ce + 1, a2.text_size - 1, sp, tally))
             a2 = pop2()
+    if trace.on:
+        trace.count("multiz.cut", count=tally[1])
+        trace.count("multiz.cut-numpy", count=tally[0])
 
 
 @trace.traced("multiz")

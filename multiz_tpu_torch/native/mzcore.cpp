@@ -196,29 +196,12 @@ bad:
     return nullptr;
 }
 
-// score_range(T, n, W, start, size, ss, gop) -> int64
-//   Sum-of-pairs score of columns [start, start+size) of n stacked text
-//   rows (mafScoreRange, mz_scores.c:124-152), incl. the reference's
-//   quirk that the gap term for column i reaches back to absolute
-//   column i-1 even when i == start > 0.
-//   T: uint8 (n, W) C-contiguous; ss: int32 (128,128); gop: int32 (16,)
-PyObject* score_range(PyObject*, PyObject* args) {
-    PyObject *to, *sso, *gopo;
-    Py_ssize_t n, W, start, size;
-    if (!PyArg_ParseTuple(args, "OnnnnOO", &to, &n, &W, &start, &size,
-                          &sso, &gopo))
-        return nullptr;
-    Buf T(to, PyBUF_SIMPLE), SS(sso, PyBUF_SIMPLE), GOP(gopo, PyBUF_SIMPLE);
-    if (!T.ok || !SS.ok || !GOP.ok) return nullptr;
-    if (T.len() < n * W || start < 0 || size <= 0 || start + size > W ||
-        SS.len() < (Py_ssize_t)(128 * 128 * sizeof(int32_t)) ||
-        GOP.len() < (Py_ssize_t)(16 * sizeof(int32_t))) {
-        PyErr_SetString(PyExc_ValueError, "score_range: bad args");
-        return nullptr;
-    }
-    const uint8_t* t = T.u8();
-    const int32_t* ss = SS.i32();
-    const int32_t* gop = GOP.i32();
+// Sum-of-pairs score of columns [start, start+size) of n rows of equal
+// length (mafScoreRange, mz_scores.c:124-152), incl. the reference's
+// quirk that the gap term for column i reaches back to absolute column
+// i-1 even when i == start > 0. ss: int32 (128,128); gop: int32 (16,).
+int64_t sop_score(const uint8_t* const* rows, Py_ssize_t n, Py_ssize_t start,
+                  Py_ssize_t size, const int32_t* ss, const int32_t* gop) {
     const Py_ssize_t lo = start > 1 ? start : 1;
     const Py_ssize_t hi = start + size;
     int64_t total = 0;
@@ -230,9 +213,9 @@ PyObject* score_range(PyObject*, PyObject* args) {
     const bool big = (int64_t)size * n * (n - 1) > 200000;
     PyThreadState* _save = big ? PyEval_SaveThread() : nullptr;
     for (Py_ssize_t i = 0; i < n; ++i) {
-        const uint8_t* a = t + i * W;
+        const uint8_t* a = rows[i];
         for (Py_ssize_t j = i + 1; j < n; ++j) {
-            const uint8_t* b = t + j * W;
+            const uint8_t* b = rows[j];
             for (Py_ssize_t c = start; c < hi; ++c)
                 total += ss[a[c] * 128 + b[c]];
             for (Py_ssize_t c = lo; c < hi; ++c) {
@@ -244,7 +227,291 @@ PyObject* score_range(PyObject*, PyObject* args) {
         }
     }
     if (_save) PyEval_RestoreThread(_save);
-    return PyLong_FromLongLong((long long)total);
+    return total;
+}
+
+// score_range(T, n, W, start, size, ss, gop) -> int64
+//   sop_score over n stacked text rows. T: uint8 (n, W) C-contiguous.
+PyObject* score_range(PyObject*, PyObject* args) {
+    PyObject *to, *sso, *gopo;
+    Py_ssize_t n, W, start, size;
+    if (!PyArg_ParseTuple(args, "OnnnnOO", &to, &n, &W, &start, &size,
+                          &sso, &gopo))
+        return nullptr;
+    Buf T(to, PyBUF_SIMPLE), SS(sso, PyBUF_SIMPLE), GOP(gopo, PyBUF_SIMPLE);
+    if (!T.ok || !SS.ok || !GOP.ok) return nullptr;
+    if (n < 0 || T.len() < n * W || start < 0 || size <= 0 ||
+        start + size > W ||
+        SS.len() < (Py_ssize_t)(128 * 128 * sizeof(int32_t)) ||
+        GOP.len() < (Py_ssize_t)(16 * sizeof(int32_t))) {
+        PyErr_SetString(PyExc_ValueError, "score_range: bad args");
+        return nullptr;
+    }
+    std::vector<const uint8_t*> rows(n);
+    for (Py_ssize_t i = 0; i < n; ++i) rows[i] = T.u8() + i * W;
+    return PyLong_FromLongLong((long long)sop_score(
+        rows.data(), n, start, size, SS.i32(), GOP.i32()));
+}
+
+// ---- block cuts of the merge scan (blocks.keep_ali, make_part_ali_col,
+// nd_col): one pass over a block's rows a cut, in place of several numpy
+// calls a row. Each returns None where it cannot answer (a text that is
+// not a contiguous byte buffer, rows of unequal length, a cut outside the
+// row); the caller then runs its numpy version, which raises or answers.
+
+// #non-dash bytes of p[0:n].
+inline Py_ssize_t count_nondash(const uint8_t* p, Py_ssize_t n) {
+    Py_ssize_t c = 0;
+    for (Py_ssize_t i = 0; i < n; ++i) c += (p[i] != DASH);
+    return c;
+}
+
+// Column of the k-th (0-based) non-dash byte of p[0:n] counted from the
+// front (or from the back: k = 0 is the last), or -1. Whole 64-byte
+// chunks are skipped by their count.
+Py_ssize_t kth_nondash(const uint8_t* p, Py_ssize_t n, Py_ssize_t k,
+                       bool back) {
+    constexpr Py_ssize_t CH = 64;
+    if (!back) {
+        Py_ssize_t i = 0;
+        for (; i + CH <= n; i += CH) {
+            Py_ssize_t c = count_nondash(p + i, CH);
+            if (c > k) break;
+            k -= c;
+        }
+        for (; i < n; ++i)
+            if (p[i] != DASH && k-- == 0) return i;
+    } else {
+        Py_ssize_t i = n;
+        for (; i - CH >= 0; i -= CH) {
+            Py_ssize_t c = count_nondash(p + i - CH, CH);
+            if (c > k) break;
+            k -= c;
+        }
+        while (i-- > 0)
+            if (p[i] != DASH && k-- == 0) return i;
+    }
+    return -1;
+}
+
+// The rows of a block as byte buffers, each with its optional int64
+// position map (Comp.pos_map, held where it is current: pm[c] = #non-dash
+// in text[:c+1]). A map of the wrong length is ignored.
+struct Rows {
+    std::vector<Py_buffer> text, pm;
+    std::vector<char> has_pm;
+    Py_ssize_t n = 0, got = 0, W = -1;
+
+    ~Rows() {
+        for (Py_ssize_t i = 0; i < got; ++i) {
+            PyBuffer_Release(&text[i]);
+            if (has_pm[i]) PyBuffer_Release(&pm[i]);
+        }
+    }
+    // false with no exception set: the caller returns None
+    bool load(PyObject* texts, PyObject* pms) {
+        n = PySequence_Fast_GET_SIZE(texts);
+        if (n < 1 || PySequence_Fast_GET_SIZE(pms) != n) return false;
+        text.resize(n);
+        pm.resize(n);
+        has_pm.assign(n, 0);
+        for (Py_ssize_t i = 0; i < n; ++i) {
+            if (PyObject_GetBuffer(PySequence_Fast_GET_ITEM(texts, i),
+                                   &text[i], PyBUF_SIMPLE) != 0) {
+                PyErr_Clear();
+                return false;
+            }
+            ++got;
+            if (W < 0) W = text[i].len;
+            if (text[i].len != W) return false;
+            PyObject* m = PySequence_Fast_GET_ITEM(pms, i);
+            if (m == Py_None) continue;
+            if (PyObject_GetBuffer(m, &pm[i], PyBUF_SIMPLE) != 0) {
+                PyErr_Clear();
+                continue;
+            }
+            if (pm[i].len == W * (Py_ssize_t)sizeof(int64_t))
+                has_pm[i] = 1;
+            else
+                PyBuffer_Release(&pm[i]);
+        }
+        return true;
+    }
+    const uint8_t* row(Py_ssize_t i) const {
+        return static_cast<const uint8_t*>(text[i].buf);
+    }
+    // #non-dash in row i's text[:col], 0 <= col <= W
+    Py_ssize_t before(Py_ssize_t i, Py_ssize_t col) const {
+        if (col <= 0) return 0;
+        if (has_pm[i])
+            return (Py_ssize_t)static_cast<const int64_t*>(pm[i].buf)[col - 1];
+        return count_nondash(row(i), col);
+    }
+};
+
+// A sequence as a fast sequence (o is nullptr with the error set).
+struct Fast {
+    PyObject* o;
+    explicit Fast(PyObject* seq) : o(PySequence_Fast(seq, "expected a sequence")) {}
+    ~Fast() { Py_XDECREF(o); }
+};
+
+// keep_cut(texts, pms, nd, k) -> (col_beg, counts) | None
+//   keep_ali's cut (multi_util.c:468-511): col_beg is the column just
+//   after the top row's k-th non-dash char (0 where k == 0), found from
+//   the top row's nd_idx (int64, or None) or its position map, else by a
+//   scan; counts[i] is row i's #non-dash before col_beg.
+PyObject* keep_cut(PyObject*, PyObject* args) {
+    PyObject *to, *pmo, *ndo;
+    Py_ssize_t k;
+    if (!PyArg_ParseTuple(args, "OOOn", &to, &pmo, &ndo, &k)) return nullptr;
+    Fast texts(to), pms(pmo);
+    if (!texts.o || !pms.o) return nullptr;
+    Rows R;
+    if (!R.load(texts.o, pms.o) || k < 0) Py_RETURN_NONE;
+    const Py_ssize_t W = R.W;
+    Py_ssize_t col_beg = -1;
+    if (k == 0) {
+        col_beg = 0;
+    } else if (ndo != Py_None) {
+        Buf nd(ndo, PyBUF_SIMPLE);
+        if (!nd.ok) PyErr_Clear();
+        else if (nd.len() >= k * (Py_ssize_t)sizeof(int64_t))
+            col_beg = (Py_ssize_t)reinterpret_cast<const int64_t*>(nd.u8())[k - 1] + 1;
+    }
+    if (col_beg < 0 && R.has_pm[0]) {  // first column whose count reaches k
+        const int64_t* pm = static_cast<const int64_t*>(R.pm[0].buf);
+        Py_ssize_t lo = 0, hi = W;
+        while (lo < hi) {
+            Py_ssize_t mid = lo + (hi - lo) / 2;
+            if (pm[mid] >= k) hi = mid; else lo = mid + 1;
+        }
+        if (lo < W) col_beg = lo + 1;
+    }
+    if (col_beg < 0) {
+        Py_ssize_t c = kth_nondash(R.row(0), W, k - 1, false);
+        if (c >= 0) col_beg = c + 1;
+    }
+    if (col_beg < 0 || col_beg > W) Py_RETURN_NONE;
+    PyObject* counts = PyList_New(R.n);
+    if (!counts) return nullptr;
+    for (Py_ssize_t i = 0; i < R.n; ++i)
+        PyList_SET_ITEM(counts, i, PyLong_FromSsize_t(R.before(i, col_beg)));
+    return Py_BuildValue("(nN)", col_beg, counts);
+}
+
+// part_cut(texts, pms, cbeg, cend, ss, gop) -> (befores, sizes, mask, score)
+//   | None
+//   make_part_ali_col's cut (multi_util.c:570-617) of columns
+//   [cbeg, cend]: each row's #non-dash before and inside them (a row
+//   whose size is 0 is dropped), mask (bytes, 1 = keep) where a column
+//   of the range is all dash, else None, and the sop_score of the kept
+//   rows over the kept columns.
+PyObject* part_cut(PyObject*, PyObject* args) {
+    PyObject *to, *pmo, *sso, *gopo;
+    Py_ssize_t cbeg, cend;
+    if (!PyArg_ParseTuple(args, "OOnnOO", &to, &pmo, &cbeg, &cend, &sso,
+                          &gopo))
+        return nullptr;
+    Buf SS(sso, PyBUF_SIMPLE), GOP(gopo, PyBUF_SIMPLE);
+    if (!SS.ok || !GOP.ok) return nullptr;
+    if (SS.len() < (Py_ssize_t)(128 * 128 * sizeof(int32_t)) ||
+        GOP.len() < (Py_ssize_t)(16 * sizeof(int32_t))) {
+        PyErr_SetString(PyExc_ValueError, "part_cut: bad tables");
+        return nullptr;
+    }
+    Fast texts(to), pms(pmo);
+    if (!texts.o || !pms.o) return nullptr;
+    Rows R;
+    if (!R.load(texts.o, pms.o) || cbeg < 0 || cend < cbeg || cend >= R.W)
+        Py_RETURN_NONE;
+    const Py_ssize_t width = cend - cbeg + 1;
+    std::vector<Py_ssize_t> bef(R.n), sz(R.n);
+    std::vector<const uint8_t*> kept;
+    kept.reserve(R.n);
+    for (Py_ssize_t i = 0; i < R.n; ++i) {
+        const uint8_t* p = R.row(i) + cbeg;
+        bef[i] = R.before(i, cbeg);
+        sz[i] = R.has_pm[i] ? R.before(i, cend + 1) - bef[i]
+                            : count_nondash(p, width);
+        if (sz[i] > 0) kept.push_back(p);
+    }
+    const Py_ssize_t nk = (Py_ssize_t)kept.size();
+    // columns of the range that hold a non-dash char in some row
+    std::vector<uint8_t> keep(width, 0);
+    Py_ssize_t wk = 0;
+    for (Py_ssize_t c = 0; c < width; ++c) {
+        uint8_t any = 0;
+        for (Py_ssize_t i = 0; i < nk && !any; ++i) any = kept[i][c] != DASH;
+        keep[c] = any;
+        wk += any;
+    }
+    int64_t score = 0;
+    std::vector<uint8_t> packed;  // the kept rows without all-dash columns
+    if (nk >= 2 && wk > 0) {
+        if (wk < width) {
+            packed.resize(nk * wk);
+            for (Py_ssize_t i = 0; i < nk; ++i) {
+                uint8_t* q = packed.data() + i * wk;
+                for (Py_ssize_t c = 0; c < width; ++c)
+                    if (keep[c]) *q++ = kept[i][c];
+                kept[i] = packed.data() + i * wk;
+            }
+        }
+        score = sop_score(kept.data(), nk, 0, wk, SS.i32(), GOP.i32());
+    }
+    PyObject* befores = PyList_New(R.n);
+    PyObject* sizes = PyList_New(R.n);
+    PyObject* mask = wk < width
+        ? PyBytes_FromStringAndSize(reinterpret_cast<const char*>(keep.data()), width)
+        : (Py_INCREF(Py_None), Py_None);
+    if (!befores || !sizes || !mask) {
+        Py_XDECREF(befores);
+        Py_XDECREF(sizes);
+        Py_XDECREF(mask);
+        return nullptr;
+    }
+    for (Py_ssize_t i = 0; i < R.n; ++i) {
+        PyList_SET_ITEM(befores, i, PyLong_FromSsize_t(bef[i]));
+        PyList_SET_ITEM(sizes, i, PyLong_FromSsize_t(sz[i]));
+    }
+    return Py_BuildValue("(NNNL)", befores, sizes, mask, (long long)score);
+}
+
+// nd_col(text, k, n) -> column | None
+//   Column of the k-th (0-based) non-dash char of a row holding n of
+//   them (maf.pos2col), len(text) where k == n: a scan from the row's
+//   nearer end, in place of nd_idx over the whole row.
+PyObject* nd_col(PyObject*, PyObject* args) {
+    PyObject* to;
+    Py_ssize_t k, n;
+    if (!PyArg_ParseTuple(args, "Onn", &to, &k, &n)) return nullptr;
+    Buf T(to, PyBUF_SIMPLE);
+    if (!T.ok) {
+        PyErr_Clear();
+        Py_RETURN_NONE;
+    }
+    if (k < 0 || k > n) Py_RETURN_NONE;
+    if (k == n) return PyLong_FromSsize_t(T.len());
+    Py_ssize_t c = k <= n - 1 - k ? kth_nondash(T.u8(), T.len(), k, false)
+                                  : kth_nondash(T.u8(), T.len(), n - 1 - k, true);
+    if (c < 0) Py_RETURN_NONE;
+    return PyLong_FromSsize_t(c);
+}
+
+// nondash_count(text, col) -> #non-dash in text[:col] | None
+//   Comp.nondash_before without the row's position map.
+PyObject* nondash_count(PyObject*, PyObject* args) {
+    PyObject* to;
+    Py_ssize_t col;
+    if (!PyArg_ParseTuple(args, "On", &to, &col)) return nullptr;
+    Buf T(to, PyBUF_SIMPLE);
+    if (!T.ok) {
+        PyErr_Clear();
+        Py_RETURN_NONE;
+    }
+    if (col < 0 || col > T.len()) Py_RETURN_NONE;
+    return PyLong_FromSsize_t(count_nondash(T.u8(), col));
 }
 
 // band_info(LB, RB, M, N, row_chunk, cws) -> (cw, maxwidth, cells)
@@ -852,6 +1119,14 @@ PyMethodDef methods[] = {
      "batched host DP: many problems under one GIL release"},
     {"score_range", score_range, METH_VARARGS,
      "sum-of-pairs mafScoreRange over stacked text rows"},
+    {"keep_cut", keep_cut, METH_VARARGS,
+     "keep_ali's cut column and each row's count before it"},
+    {"part_cut", part_cut, METH_VARARGS,
+     "make_part_ali_col's counts, dash-column mask and score"},
+    {"nd_col", nd_col, METH_VARARGS,
+     "column of a row's k-th non-dash char, scanned from its nearer end"},
+    {"nondash_count", nondash_count, METH_VARARGS,
+     "#non-dash chars before a column of a row"},
     {"band_info", band_info, METH_VARARGS,
      "band validation + window ladder pick + cell count in one pass"},
     {"smooth_into", smooth_into, METH_VARARGS,

@@ -22,6 +22,7 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 
 from . import scores as sc
+from .blocks import make_part_ali_col, nd_col, nondash_before
 from .maf import Ali, Comp, DASH, pos2col
 from .yama import yama_numpy
 
@@ -139,7 +140,7 @@ def maf_build(
             continue
         d, beg = templates[i]
         nc = d.copy(text=AT[i])
-        nc.start = d.start + d.nondash_before(beg)
+        nc.start = d.start + nondash_before(d, beg)
         nc.size = size
         out.comps.append(nc)
         kept += 1
@@ -219,10 +220,10 @@ def pre_yama_gen(
     L = len(a2.comps) - 1
 
     top1, top2 = a1.comps[0], a2.comps[0]
-    cbeg1 = pos2col(top1, beg)
-    cend1 = pos2col(top1, end)
-    cbeg2 = pos2col(top2, beg)
-    cend2 = pos2col(top2, end)
+    cbeg1 = nd_col(top1, beg - top1.start)
+    cend1 = nd_col(top1, end - top1.start)
+    cbeg2 = nd_col(top2, beg - top2.start)
+    cend2 = nd_col(top2, end - top2.start)
     M = cend1 - cbeg1 + 1
     N = cend2 - cbeg2 + 1
 
@@ -272,8 +273,6 @@ def pre_yama_gen(
         K -= 1
     if K == 0:
         if unused2_sink is not None:
-            from .blocks import make_part_ali_col
-
             part = make_part_ali_col(a2, cbeg2, cend2, sp=sp)
             unused2_sink(part)
         return None
