@@ -16,11 +16,15 @@ With ``MZ_TIME`` set, a run records its spans (``trace.py``): the root
 ``tba`` or ``roast``, ``tba.merge`` a tree node, ``maf.read`` a pair file
 parsed, ``maf_project``, ``threading.pair2tb`` / ``.get_covered`` /
 ``.strip_top`` a tool call, and ``multiz`` (with ``multic``'s calls).
+Each bridging iteration of a tba merge (a pair file that joins the two
+sides) adds one to the counter ``tba.bridge.<kind>`` with its wall
+seconds, uncharged, by the branch of tba.c it takes (``bridge_kind``).
 """
 
 from __future__ import annotations
 
 import os
+import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -345,6 +349,14 @@ def _roast_run_inner(ref, tree, pair_files, src_dir, cfg, suffix, sp,
 # --------------------------------------------------------------------------
 
 
+def bridge_kind(n1s, n2s) -> str:
+    """The branch of tba_merge a node takes, by its sides' sizes: ``ll``
+    leaf + leaf (tba.c:124-132), ``ml`` multi x leaf (tba.c:198-217),
+    ``lm`` leaf x multi (tba.c:219-240), ``mm`` multi x multi
+    (tba.c:183-197)."""
+    return ("l" if len(n1s) == 1 else "m") + ("l" if len(n2s) == 1 else "m")
+
+
 class Tba:
     """In-memory tba_merge dataflow. Temp files A..Y/REF become locals;
     left.maf<id>/right.maf<id>/tba<id> become per-node block lists."""
@@ -438,17 +450,20 @@ class Tba:
         """The data half of tba_merge (tba.c:144-276); touches only this
         node's left/right/tba entries, so same-depth merges can run
         concurrently (see tba_run parallel=). A span ``tba.merge``."""
-        with trace.span("tba.merge", nid=nid, left=tuple(n1s),
-                        right=tuple(n2s)):
+        with trace.span("tba.merge", nid=nid, kind=bridge_kind(n1s, n2s),
+                        left=tuple(n1s), right=tuple(n2s)):
             self._merge_nodes(nid, n1s, n2s, swap)
 
     def _merge_nodes(self, nid: int, n1s, n2s, swap: bool):
         sp = self.sp
         cfg = self.cfg
         REF = self.ref
+        timed = trace.on  # a bridge's seconds: tba.bridge.<kind>, uncharged
+        bridge = "tba.bridge." + bridge_kind(n1s, n2s)
 
         # ---- leaf + leaf (tba.c:124-132) ----
         if len(n1s) == 1 and len(n2s) == 1:
+            t0 = time.perf_counter() if timed else 0.0
             blocks = self._pair(n1s[0], n2s[0])
             if blocks is None:
                 raise ValueError(
@@ -458,6 +473,8 @@ class Tba:
             self.tba[nid] = t_pair2tb(
                 proj, self._seq(n1s[0]), self._seq(n2s[0])
             )
+            if timed:
+                trace.count(bridge, time.perf_counter() - t0, charge=False)
             return
 
         single_left = len(n1s) == 1
@@ -466,6 +483,7 @@ class Tba:
         single1 = single2 = 0
         for i1, n1 in enumerate(n1s):
             for i2, n2 in enumerate(n2s):
+                t0 = time.perf_counter() if timed else 0.0
                 blocks = self._pair(n1, n2)
                 if blocks is None:
                     continue
@@ -557,6 +575,9 @@ class Tba:
                     elif REF == n2 and i1 + 1 < len(n1s):
                         self.right[nid] = self.right[nid] + REFf
                 found = True
+                if timed:
+                    trace.count(bridge, time.perf_counter() - t0,
+                                charge=False)
         if not found:
             import sys
 

@@ -212,3 +212,45 @@ def test_ticks_and_counts_from_many_threads_add_up():
     assert sum(s.charged for s in merges) == pytest.approx(
         n_threads * n * 1e-6)
     assert recs[root].charged == 0.0
+
+
+def test_no_bridge_counter_with_mz_time_unset():
+    _tba()
+    assert not [k for k in trace.counters() if k.startswith("tba.bridge.")]
+
+
+def test_bridge_counters_charge_no_span(monkeypatch):
+    """Each bridging iteration counts ``tba.bridge.<kind>`` with its
+    seconds inside its node's ``tba.merge`` span, uncharged: the span's
+    self time is what its children and timed counters leave, though the
+    bridges' seconds cover its children (charged, they would drive it
+    below zero)."""
+    monkeypatch.setenv("MZ_TIME", "1")
+    calls = []
+    count = trace.count
+
+    def spy(name, seconds=0.0, *args, **kwargs):
+        if name.startswith("tba.bridge."):
+            calls.append((name, seconds, kwargs.get("charge", True),
+                          trace.current()))
+        return count(name, seconds, *args, **kwargs)
+
+    monkeypatch.setattr(trace, "count", spy)
+    _tba()
+    recs = trace.spans()
+    selfs = trace.self_times(recs)
+    # the golden tree: one leaf + leaf merge, then three multi x leaf
+    # merges of one bridge each (only human.X pairs exist)
+    assert sorted(n for n, *_ in calls) == [
+        "tba.bridge.ll"] + ["tba.bridge.ml"] * 3
+    c = trace.counters()
+    assert (c["tba.bridge.ll"].count, c["tba.bridge.ml"].count) == (1, 3)
+    for name, seconds, charge, idx in calls:
+        s = recs[idx]
+        assert charge is False
+        assert s.name == "tba.merge" and name == "tba.bridge." + s.attrs["kind"]
+        children = sum(k.t1 - k.t0 for k in recs if k.parent == idx)
+        assert 0.0 < children <= seconds <= s.t1 - s.t0
+        assert selfs[idx] == pytest.approx(
+            s.t1 - s.t0 - children - s.charged, abs=1e-12)
+        assert selfs[idx] >= 0.0
