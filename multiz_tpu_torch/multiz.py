@@ -151,9 +151,11 @@ def multiz_scan(
 
     Its block cuts (``keep_ali``, ``make_part_ali_col``, ``nd_col``) are
     tallied, native and numpy, and added once at the end as the counters
-    ``multiz.cut`` and ``multiz.cut-numpy`` where the trace is on."""
+    ``multiz.cut`` and ``multiz.cut-numpy`` where the trace is on; so are
+    its pre_yama jobs' plans, as ``preyama.native`` and ``preyama.numpy``."""
     i1 = i2 = 0
     tally = [0, 0]  # cuts: [numpy, native]
+    plans = [0, 0]  # pre_yama plans: [numpy, native]
 
     def pop1():
         nonlocal i1
@@ -225,13 +227,14 @@ def multiz_scan(
             dp_submit(
                 pre_yama_gen(
                     a1, a2, beg, end, cfg.radius, v,
-                    unused2_sink=w2.write_part, sp=sp,
+                    unused2_sink=w2.write_part, sp=sp, tally=plans,
                 )
             )
         else:
             new_ali = pre_yama(
                 a1, a2, beg, end, cfg.radius, v,
                 unused2_sink=w2.write_part, sp=sp, dp_fn=cfg.dp_fn,
+                tally=plans,
             )
             if (
                 new_ali is not None
@@ -260,6 +263,8 @@ def multiz_scan(
     if trace.on:
         trace.count("multiz.cut", count=tally[1])
         trace.count("multiz.cut-numpy", count=tally[0])
+        trace.count("preyama.native", count=plans[1])
+        trace.count("preyama.numpy", count=plans[0])
 
 
 @trace.traced("multiz")

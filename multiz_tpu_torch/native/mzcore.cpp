@@ -294,6 +294,53 @@ Py_ssize_t kth_nondash(const uint8_t* p, Py_ssize_t n, Py_ssize_t k,
     return -1;
 }
 
+// maf.Comp's slots, read and written through their member offsets, as
+// its slot descriptors do, in place of an attribute lookup each: resolved
+// once for Comp's type (the first one seen). A type whose slots are not
+// all object members is not resolved, and the caller returns None.
+struct CompSlots {
+    enum { TEXT, START, SIZE, SRC, STRAND, SRC_SIZE, PARALOG, PM, ND, N };
+    PyTypeObject* tp = nullptr;
+    Py_ssize_t off[N];
+
+    bool resolve(PyTypeObject* t) {
+        if (t == tp) return true;
+        if (tp) return false;
+        static const char* names[N] = {"text", "start", "size", "src",
+                                       "strand", "src_size", "paralog",
+                                       "_pm", "_nd"};
+        for (int i = 0; i < N; ++i) {
+            PyObject* d = PyObject_GetAttrString((PyObject*)t, names[i]);
+            bool ok = d && Py_IS_TYPE(d, &PyMemberDescr_Type);
+            if (ok) {
+                PyMemberDef* m = ((PyMemberDescrObject*)d)->d_member;
+                ok = m->type == Py_T_OBJECT_EX && !(m->flags & Py_READONLY);
+                off[i] = m->offset;
+            }
+            Py_XDECREF(d);
+            if (!ok) {
+                PyErr_Clear();
+                return false;
+            }
+        }
+        Py_INCREF(t);  // the offsets stay valid while the type lives
+        tp = t;
+        return true;
+    }
+    // a slot's value, borrowed (nullptr where it is unset)
+    PyObject* get(PyObject* o, int i) const {
+        return *reinterpret_cast<PyObject**>(reinterpret_cast<char*>(o) + off[i]);
+    }
+    // store v (a new reference, stolen) in a slot
+    void set(PyObject* o, int i, PyObject* v) const {
+        PyObject** p =
+            reinterpret_cast<PyObject**>(reinterpret_cast<char*>(o) + off[i]);
+        PyObject* old = *p;
+        *p = v;
+        Py_XDECREF(old);
+    }
+} slots;
+
 // The rows of a block as byte buffers, each with its optional int64
 // position map (Comp.pos_map, held where it is current: pm[c] = #non-dash
 // in text[:c+1]). A map of the wrong length is ignored.
@@ -312,28 +359,28 @@ struct Rows {
     bool load(PyObject* texts, PyObject* pms) {
         n = PySequence_Fast_GET_SIZE(texts);
         if (n < 1 || PySequence_Fast_GET_SIZE(pms) != n) return false;
-        text.resize(n);
-        pm.resize(n);
-        has_pm.assign(n, 0);
+        resize();
         for (Py_ssize_t i = 0; i < n; ++i) {
-            if (PyObject_GetBuffer(PySequence_Fast_GET_ITEM(texts, i),
-                                   &text[i], PyBUF_SIMPLE) != 0) {
-                PyErr_Clear();
-                return false;
-            }
-            ++got;
-            if (W < 0) W = text[i].len;
-            if (text[i].len != W) return false;
-            PyObject* m = PySequence_Fast_GET_ITEM(pms, i);
-            if (m == Py_None) continue;
-            if (PyObject_GetBuffer(m, &pm[i], PyBUF_SIMPLE) != 0) {
-                PyErr_Clear();
-                continue;
-            }
-            if (pm[i].len == W * (Py_ssize_t)sizeof(int64_t))
-                has_pm[i] = 1;
-            else
-                PyBuffer_Release(&pm[i]);
+            if (!add(i, PySequence_Fast_GET_ITEM(texts, i))) return false;
+            take_pm(i, PySequence_Fast_GET_ITEM(pms, i));
+        }
+        return true;
+    }
+    // The rows of a list of maf.Comps from row `from` on (none is fine),
+    // each with its position map where it is current (Comp._pm).
+    bool load_comps(PyObject* comps, Py_ssize_t from) {
+        n = PySequence_Fast_GET_SIZE(comps) - from;
+        if (n < 0) return false;
+        resize();
+        for (Py_ssize_t i = 0; i < n; ++i) {
+            PyObject* c = PySequence_Fast_GET_ITEM(comps, from + i);
+            if (!slots.resolve(Py_TYPE(c))) return false;
+            PyObject* t = slots.get(c, slots.TEXT);
+            if (!t || !add(i, t)) return false;
+            PyObject* m = slots.get(c, slots.PM);
+            if (m && PyTuple_Check(m) && PyTuple_GET_SIZE(m) == 2 &&
+                PyTuple_GET_ITEM(m, 0) == t)
+                take_pm(i, PyTuple_GET_ITEM(m, 1));
         }
         return true;
     }
@@ -346,6 +393,33 @@ struct Rows {
         if (has_pm[i])
             return (Py_ssize_t)static_cast<const int64_t*>(pm[i].buf)[col - 1];
         return count_nondash(row(i), col);
+    }
+
+  private:
+    void resize() {
+        text.resize(n);
+        pm.resize(n);
+        has_pm.assign(n, 0);
+    }
+    bool add(Py_ssize_t i, PyObject* t) {  // row i's text, of length W
+        if (PyObject_GetBuffer(t, &text[i], PyBUF_SIMPLE) != 0) {
+            PyErr_Clear();
+            return false;
+        }
+        ++got;
+        if (W < 0) W = text[i].len;
+        return text[i].len == W;
+    }
+    void take_pm(Py_ssize_t i, PyObject* m) {  // row i's map, if it fits
+        if (m == Py_None) return;
+        if (PyObject_GetBuffer(m, &pm[i], PyBUF_SIMPLE) != 0) {
+            PyErr_Clear();
+            return;
+        }
+        if (pm[i].len == W * (Py_ssize_t)sizeof(int64_t))
+            has_pm[i] = 1;
+        else
+            PyBuffer_Release(&pm[i]);
     }
 };
 
@@ -478,10 +552,19 @@ PyObject* part_cut(PyObject*, PyObject* args) {
     return Py_BuildValue("(NNNL)", befores, sizes, mask, (long long)score);
 }
 
+// Column of the k-th (0-based) non-dash byte of a row p[0:W] holding n
+// of them (maf.pos2col), W where k == n, -1 where there is none: a scan
+// from the row's nearer end.
+Py_ssize_t nd_col_of(const uint8_t* p, Py_ssize_t W, Py_ssize_t k,
+                     Py_ssize_t n) {
+    if (k < 0 || k > n) return -1;
+    if (k == n) return W;
+    return k <= n - 1 - k ? kth_nondash(p, W, k, false)
+                          : kth_nondash(p, W, n - 1 - k, true);
+}
+
 // nd_col(text, k, n) -> column | None
-//   Column of the k-th (0-based) non-dash char of a row holding n of
-//   them (maf.pos2col), len(text) where k == n: a scan from the row's
-//   nearer end, in place of nd_idx over the whole row.
+//   nd_col_of over a row, in place of nd_idx over the whole row.
 PyObject* nd_col(PyObject*, PyObject* args) {
     PyObject* to;
     Py_ssize_t k, n;
@@ -491,10 +574,7 @@ PyObject* nd_col(PyObject*, PyObject* args) {
         PyErr_Clear();
         Py_RETURN_NONE;
     }
-    if (k < 0 || k > n) Py_RETURN_NONE;
-    if (k == n) return PyLong_FromSsize_t(T.len());
-    Py_ssize_t c = k <= n - 1 - k ? kth_nondash(T.u8(), T.len(), k, false)
-                                  : kth_nondash(T.u8(), T.len(), n - 1 - k, true);
+    Py_ssize_t c = nd_col_of(T.u8(), T.len(), k, n);
     if (c < 0) Py_RETURN_NONE;
     return PyLong_FromSsize_t(c);
 }
@@ -632,75 +712,262 @@ PyObject* smooth_into(PyObject*, PyObject* args) {
     Py_RETURN_NONE;
 }
 
-// preyama_prep1(Bfull, N, L, top1s, M, top2s, radius, Bout, LB, RB) -> N_new
-//   The v==1 prep of pre_yama in one pass (mz_preyama.c:203-259):
-//   compact all-dash columns of B, derive the band from the lockstep
-//   walk of the two reference-row slices, monotonize + dilate.
-//   Bfull: uint8 (N, L) column-major C-contig; top1s: uint8 (M,);
-//   top2s: uint8 (N,); Bout: uint8 (>= N, L) writable;
-//   LB/RB: int64 (M+1,) writable (fully overwritten).
-PyObject* preyama_prep1(PyObject*, PyObject* args) {
-    PyObject *bo, *t1o, *t2o, *bouto, *lbo, *rbo;
-    Py_ssize_t N, L, M;
+// ---- pre_yama's DP job (preyama.pre_yama_gen, v == 1) and the fold of
+// its result (preyama.maf_build): one pass each over a block's Comps, in
+// place of a dozen numpy calls a job and a Python loop over the rows.
+// Each returns None where it cannot answer (a text that is not a
+// contiguous byte buffer, rows of unequal length, a column outside the
+// rows); the caller then runs its numpy version, which raises or answers.
+
+PyObject* s_empty;  // () for tp_new
+
+// An int slot of a Comp; false (no exception set) where it is not one.
+bool int_slot(PyObject* o, int i, Py_ssize_t* out) {
+    PyObject* v = slots.get(o, i);
+    if (v && PyLong_CheckExact(v)) {
+        *out = PyLong_AsSsize_t(v);
+        if (!(*out == -1 && PyErr_Occurred())) return true;
+    }
+    PyErr_Clear();
+    return false;
+}
+
+// preyama_plan1(comps1, comps2, beg, end, radius)
+//   -> (A, B, LB, RB, M, K, N, L, cbeg1, cbeg2, befores) | 0 | None
+//   pre_yama's v == 1 job (mz_preyama.c:152-259) in one pass: the four
+//   column lookups of beg and end in the top rows (nd_col's rule), A =
+//   every row of comps1 over [cbeg1, cend1] as (M, K) columns, B = the
+//   rows of comps2 but its first over [cbeg2, cend2] as (N, L) columns
+//   with its all-dash columns dropped, and the band from the lockstep walk
+//   of the two top rows, monotonized and dilated by radius. A, B: uint8
+//   bytearrays; LB, RB: int64 bytearrays of M + 1; befores: int64 bytes,
+//   each row's #non-dash before its cut (comps1's, then comps2's but its
+//   first), for preyama_fold. 0 where B keeps no column (pre_yama
+//   returns None).
+PyObject* preyama_plan1(PyObject*, PyObject* args) {
+    PyObject *c1o, *c2o;
+    Py_ssize_t beg, end;
     long long radius;
-    if (!PyArg_ParseTuple(args, "OnnOnOLOOO", &bo, &N, &L, &t1o, &M, &t2o,
-                          &radius, &bouto, &lbo, &rbo))
+    if (!PyArg_ParseTuple(args, "OOnnL", &c1o, &c2o, &beg, &end, &radius))
         return nullptr;
-    Buf B(bo, PyBUF_SIMPLE), T1(t1o, PyBUF_SIMPLE), T2(t2o, PyBUF_SIMPLE),
-        BO(bouto, PyBUF_WRITABLE), LBb(lbo, PyBUF_WRITABLE),
-        RBb(rbo, PyBUF_WRITABLE);
-    if (!B.ok || !T1.ok || !T2.ok || !BO.ok || !LBb.ok || !RBb.ok)
-        return nullptr;
-    if (B.len() < N * L || T1.len() < M || T2.len() < N ||
-        BO.len() < N * L ||
-        LBb.len() < (Py_ssize_t)((M + 1) * sizeof(int64_t)) ||
-        RBb.len() < (Py_ssize_t)((M + 1) * sizeof(int64_t))) {
-        PyErr_SetString(PyExc_ValueError, "preyama_prep1: bad buffers");
+    Fast c1(c1o), c2(c2o);
+    if (!c1.o || !c2.o) return nullptr;
+    Rows R1, R2;
+    if (!R1.load_comps(c1.o, 0) || !R2.load_comps(c2.o, 0) || R1.n < 1 ||
+        R2.n < 1)
+        Py_RETURN_NONE;
+    Py_ssize_t st1, sz1, st2, sz2;
+    PyObject* top1 = PySequence_Fast_GET_ITEM(c1.o, 0);
+    PyObject* top2 = PySequence_Fast_GET_ITEM(c2.o, 0);
+    if (!int_slot(top1, slots.START, &st1) || !int_slot(top1, slots.SIZE, &sz1) ||
+        !int_slot(top2, slots.START, &st2) || !int_slot(top2, slots.SIZE, &sz2))
+        Py_RETURN_NONE;
+    const Py_ssize_t W1 = R1.W, W2 = R2.W;
+    const Py_ssize_t cb1 = nd_col_of(R1.row(0), W1, beg - st1, sz1);
+    const Py_ssize_t ce1 = nd_col_of(R1.row(0), W1, end - st1, sz1);
+    const Py_ssize_t cb2 = nd_col_of(R2.row(0), W2, beg - st2, sz2);
+    const Py_ssize_t ce2 = nd_col_of(R2.row(0), W2, end - st2, sz2);
+    if (cb1 < 0 || ce1 < cb1 || ce1 >= W1 || cb2 < 0 || ce2 < cb2 ||
+        ce2 >= W2)
+        Py_RETURN_NONE;
+    const Py_ssize_t K = R1.n, L = R2.n - 1;
+    const Py_ssize_t M = ce1 - cb1 + 1, N = ce2 - cb2 + 1;
+    if (L == 0) return PyLong_FromLong(0);  // every column of B is empty
+    // the fold's starts: each template row's #non-dash before its cut
+    PyObject* befo = PyBytes_FromStringAndSize(nullptr, (K + L) * 8);
+    if (!befo) return nullptr;
+    int64_t* bef = reinterpret_cast<int64_t*>(PyBytes_AS_STRING(befo));
+    for (Py_ssize_t r = 0; r < K; ++r) bef[r] = R1.before(r, cb1);
+    for (Py_ssize_t r = 1; r <= L; ++r) bef[K + r - 1] = R2.before(r, cb2);
+    PyObject* ao = PyByteArray_FromStringAndSize(nullptr, M * K);
+    PyObject* bo = PyByteArray_FromStringAndSize(nullptr, N * L);
+    PyObject* lbo = PyByteArray_FromStringAndSize(nullptr, (M + 1) * 8);
+    PyObject* rbo = PyByteArray_FromStringAndSize(nullptr, (M + 1) * 8);
+    if (!ao || !bo || !lbo || !rbo) {
+        Py_XDECREF(ao); Py_XDECREF(bo); Py_XDECREF(lbo); Py_XDECREF(rbo);
+        Py_DECREF(befo);
         return nullptr;
     }
-    const uint8_t* b = B.u8();
-    const uint8_t* t1 = T1.u8();
-    const uint8_t* t2 = T2.u8();
-    uint8_t* bout = BO.u8();
-    int64_t* LB = reinterpret_cast<int64_t*>(LBb.u8());
-    int64_t* RB = reinterpret_cast<int64_t*>(RBb.u8());
+    uint8_t* a = reinterpret_cast<uint8_t*>(PyByteArray_AS_STRING(ao));
+    uint8_t* bout = reinterpret_cast<uint8_t*>(PyByteArray_AS_STRING(bo));
+    int64_t* LB = reinterpret_cast<int64_t*>(PyByteArray_AS_STRING(lbo));
+    int64_t* RB = reinterpret_cast<int64_t*>(PyByteArray_AS_STRING(rbo));
+    std::vector<const uint8_t*> brow(L);
+    for (Py_ssize_t r = 0; r < L; ++r) brow[r] = R2.row(r + 1) + cb2;
+    std::vector<int64_t> map2(N + 1);
+    std::vector<Py_ssize_t> nd2(N);
+    const uint8_t* t1 = R1.row(0) + cb1;
+    const uint8_t* t2 = R2.row(0) + cb2;
     // short call (tens of us): keep the GIL — releasing it queues this
-    // thread behind the host-DP lane worker (see score_range)
-    const bool big = (int64_t)N * (L + 1) > 500000;
+    // thread behind the host-DP lane worker (see sop_score)
+    const bool big = (int64_t)N * (L + 1) + (int64_t)M * K > 500000;
     PyThreadState* _save = big ? PyEval_SaveThread() : nullptr;
-    // compact all-dash columns; map2[j] = 1-based new col or -1
-    int64_t* map2 = new int64_t[N + 1];
+    for (Py_ssize_t r = 0; r < K; ++r) {
+        const uint8_t* p = R1.row(r) + cb1;
+        for (Py_ssize_t m = 0; m < M; ++m) a[m * K + r] = p[m];
+    }
+    // B's columns, all-dash ones dropped; map2[j] = 1-based new col or -1
     Py_ssize_t nn = 0;
     for (Py_ssize_t j = 0; j < N; ++j) {
-        const uint8_t* col = b + j * L;
+        uint8_t* q = bout + nn * L;
         bool keep = false;
-        for (Py_ssize_t r = 0; r < L; ++r)
-            if (col[r] != DASH) { keep = true; break; }
-        if (keep) {
-            std::memcpy(bout + nn * L, col, L);
-            ++nn;
-            map2[j + 1] = nn;
-        } else {
-            map2[j + 1] = -1;
+        for (Py_ssize_t r = 0; r < L; ++r) {
+            q[r] = brow[r][j];
+            keep |= q[r] != DASH;
         }
+        map2[j + 1] = keep ? nn + 1 : -1;
+        nn += keep;
     }
     if (nn > 0) {
+        // lockstep walk: the t-th non-dash of t1 pairs with the t-th of
+        // t2, whose 1-based column is nd2[t]
+        Py_ssize_t n2 = 0;
+        for (Py_ssize_t j = 0; j < N; ++j) {
+            nd2[n2] = j + 1;
+            n2 += t2[j] != DASH;
+        }
         for (Py_ssize_t i = 0; i <= M; ++i) { LB[i] = 0; RB[i] = nn; }
-        // lockstep walk: t-th non-dash of top1s pairs with t-th of top2s
-        Py_ssize_t j = 0;  // 0-based scan over top2s
-        for (Py_ssize_t i = 1; i <= M; ++i) {
-            if (t1[i - 1] == DASH) continue;
-            while (j < N && t2[j] == DASH) ++j;
-            if (j >= N) break;
-            ++j;  // j is now the 1-based paired column of B
-            int64_t c2 = map2[j];
-            if (c2 != -1) { LB[i] = c2; RB[i] = c2; }
+        for (Py_ssize_t i = 1, t = 0; i <= M && t < n2; ++i) {
+            const bool nd = t1[i - 1] != DASH;
+            const int64_t c = map2[nd2[t]];
+            if (nd && c != -1) { LB[i] = c; RB[i] = c; }
+            t += nd;
         }
         smooth_c(LB, RB, M, nn, radius);
     }
-    delete[] map2;
     if (_save) PyEval_RestoreThread(_save);
-    return PyLong_FromSsize_t(nn);
+    if (nn == 0 || PyByteArray_Resize(bo, nn * L) != 0) {
+        Py_DECREF(ao); Py_DECREF(bo); Py_DECREF(lbo); Py_DECREF(rbo);
+        Py_DECREF(befo);
+        return nn == 0 ? PyLong_FromLong(0) : nullptr;
+    }
+    return Py_BuildValue("(NNNNnnnnnnN)", ao, bo, lbo, rbo, M, K, nn, L, cb1,
+                         cb2, befo);
+}
+
+// preyama_fold(AL, T, comps_a, cbeg_a, comps_b, skip_b, cbeg_b, ss, gop,
+//              befores=None) -> (comps, score) | None
+//   maf_build (mz_preyama.c:38-81) in one pass: AL, the DP's merged
+//   (ncol, nrow) uint8 columns, transposed into T, a fresh (nrow, ncol)
+//   uint8 array; row i's template is comps_a[i], then comps_b[skip_b:],
+//   cut at column cbeg_a, cbeg_b. Each row that holds a base becomes a
+//   copy of its template (as Comp.copy) with text T[i], start advanced by
+//   the template's #non-dash before its cut (befores[i], int64, where
+//   given: preyama_plan1's), and size its #non-dash; score is the
+//   sop_score of those rows (0 for fewer than two).
+PyObject* preyama_fold(PyObject*, PyObject* args) {
+    PyObject *alo, *to, *cao, *cbo, *sso, *gopo, *bfo = Py_None;
+    Py_ssize_t cbeg_a, skip_b, cbeg_b;
+    if (!PyArg_ParseTuple(args, "OOOnOnnOO|O", &alo, &to, &cao, &cbeg_a, &cbo,
+                          &skip_b, &cbeg_b, &sso, &gopo, &bfo))
+        return nullptr;
+    Buf SS(sso, PyBUF_SIMPLE), GOP(gopo, PyBUF_SIMPLE);
+    if (!SS.ok || !GOP.ok) return nullptr;
+    if (SS.len() < (Py_ssize_t)(128 * 128 * sizeof(int32_t)) ||
+        GOP.len() < (Py_ssize_t)(16 * sizeof(int32_t))) {
+        PyErr_SetString(PyExc_ValueError, "preyama_fold: bad tables");
+        return nullptr;
+    }
+    Buf AL(alo, PyBUF_C_CONTIGUOUS), T(to, PyBUF_C_CONTIGUOUS | PyBUF_WRITABLE);
+    if (!AL.ok || !T.ok) {
+        PyErr_Clear();
+        Py_RETURN_NONE;
+    }
+    if (AL.view.ndim != 2 || AL.view.itemsize != 1 || T.view.ndim != 2 ||
+        T.view.itemsize != 1)
+        Py_RETURN_NONE;
+    const Py_ssize_t ncol = AL.view.shape[0], nrow = AL.view.shape[1];
+    if (T.view.shape[0] != nrow || T.view.shape[1] != ncol) Py_RETURN_NONE;
+    Fast ca(cao), cb(cbo);
+    if (!ca.o || !cb.o) return nullptr;
+    const Py_ssize_t na = PySequence_Fast_GET_SIZE(ca.o);
+    if (skip_b < 0 || na + PySequence_Fast_GET_SIZE(cb.o) - skip_b != nrow)
+        Py_RETURN_NONE;
+    const uint8_t* al = AL.u8();
+    uint8_t* t = T.u8();
+    std::vector<Py_ssize_t> size(nrow, 0);
+    for (Py_ssize_t r = 0; r < nrow; ++r) {
+        const uint8_t* p = al + r;
+        uint8_t* q = t + r * ncol;
+        Py_ssize_t n = 0;
+        for (Py_ssize_t c = 0; c < ncol; ++c) {
+            q[c] = p[c * nrow];
+            n += q[c] != DASH;
+        }
+        size[r] = n;
+    }
+    // each kept row's #non-dash before its cut: the plan's, else counted
+    std::vector<Py_ssize_t> before(nrow, 0);
+    if (bfo != Py_None) {
+        Buf BF(bfo, PyBUF_SIMPLE);
+        if (!BF.ok || BF.len() != nrow * 8) {
+            PyErr_Clear();
+            Py_RETURN_NONE;
+        }
+        for (Py_ssize_t r = 0; r < nrow; ++r)
+            before[r] = (Py_ssize_t) reinterpret_cast<const int64_t*>(BF.u8())[r];
+    } else {
+        Rows RA, RB;
+        if (!RA.load_comps(ca.o, 0) || !RB.load_comps(cb.o, skip_b) ||
+            cbeg_a < 0 || cbeg_b < 0 || (RA.n && cbeg_a > RA.W) ||
+            (RB.n && cbeg_b > RB.W))
+            Py_RETURN_NONE;
+        for (Py_ssize_t r = 0; r < nrow; ++r)
+            before[r] = r < na ? RA.before(r, cbeg_a) : RB.before(r - na, cbeg_b);
+    }
+    std::vector<PyObject*> tmpl(nrow);  // each row's template, checked
+    for (Py_ssize_t r = 0; r < nrow; ++r) {
+        PyObject* d = tmpl[r] =
+            r < na ? PySequence_Fast_GET_ITEM(ca.o, r)
+                   : PySequence_Fast_GET_ITEM(cb.o, skip_b + r - na);
+        if (size[r] == 0) continue;
+        if (!slots.resolve(Py_TYPE(d))) Py_RETURN_NONE;
+        for (int s : {slots.START, slots.SRC, slots.STRAND, slots.SRC_SIZE,
+                      slots.PARALOG})
+            if (!slots.get(d, s)) Py_RETURN_NONE;  // unset: Comp.copy raises
+    }
+    std::vector<const uint8_t*> kept;
+    kept.reserve(nrow);
+    for (Py_ssize_t r = 0; r < nrow; ++r)
+        if (size[r] > 0) kept.push_back(t + r * ncol);
+    const Py_ssize_t nk = (Py_ssize_t)kept.size();
+    const int64_t score =
+        nk >= 2 ? sop_score(kept.data(), nk, 0, ncol, SS.i32(), GOP.i32()) : 0;
+    PyObject* comps = PyList_New(nk);
+    if (!comps) return nullptr;
+    for (Py_ssize_t r = 0, k = 0; r < nrow; ++r) {
+        if (size[r] == 0) continue;
+        PyObject* d = tmpl[r];
+        PyObject* bo = PyLong_FromSsize_t(before[r]);
+        PyObject* start = bo ? PyNumber_Add(slots.get(d, slots.START), bo) : nullptr;
+        Py_XDECREF(bo);
+        PyObject* nc = start ? Py_TYPE(d)->tp_new(Py_TYPE(d), s_empty, nullptr)
+                             : nullptr;
+        if (!nc) {
+            Py_XDECREF(start);
+            Py_DECREF(comps);
+            return nullptr;
+        }
+        PyList_SET_ITEM(comps, k++, nc);
+        // as Comp.copy(text=...): the coordinate caches start empty
+        for (int s : {slots.SRC, slots.STRAND, slots.SRC_SIZE, slots.PARALOG}) {
+            PyObject* v = slots.get(d, s);
+            Py_XINCREF(v);
+            slots.set(nc, s, v);
+        }
+        slots.set(nc, slots.START, start);
+        slots.set(nc, slots.SIZE, PyLong_FromSsize_t(size[r]));
+        slots.set(nc, slots.TEXT, PySequence_GetItem(to, r));  // T[r], a view
+        Py_INCREF(Py_None);
+        slots.set(nc, slots.PM, Py_None);
+        Py_INCREF(Py_None);
+        slots.set(nc, slots.ND, Py_None);
+        if (!slots.get(nc, slots.SIZE) || !slots.get(nc, slots.TEXT)) {
+            Py_DECREF(comps);
+            return nullptr;
+        }
+    }
+    return Py_BuildValue("(Nd)", comps, (double)score);
 }
 
 // Core of the host DP: validation happens in the wrappers (so errors
@@ -1131,8 +1398,10 @@ PyMethodDef methods[] = {
      "band validation + window ladder pick + cell count in one pass"},
     {"smooth_into", smooth_into, METH_VARARGS,
      "monotonize + radius-dilate band bounds in place (preyama.smooth)"},
-    {"preyama_prep1", preyama_prep1, METH_VARARGS,
-     "v==1 pre_yama prep: compact B, lockstep band, smooth; returns N'"},
+    {"preyama_plan1", preyama_plan1, METH_VARARGS,
+     "pre_yama's v==1 job: column lookups, A, compacted B, band"},
+    {"preyama_fold", preyama_fold, METH_VARARGS,
+     "maf_build: merged columns -> kept rows' Comps and their score"},
     {"traceback_into", traceback_into, METH_VARARGS,
      "edit-script extraction (newest-first); returns nedit"},
     {"replay_into", replay_into, METH_VARARGS,
@@ -1147,4 +1416,7 @@ PyModuleDef moduledef = {
 
 }  // namespace
 
-PyMODINIT_FUNC PyInit__mzcore(void) { return PyModule_Create(&moduledef); }
+PyMODINIT_FUNC PyInit__mzcore(void) {
+    if (!(s_empty = PyTuple_New(0))) return nullptr;
+    return PyModule_Create(&moduledef);
+}

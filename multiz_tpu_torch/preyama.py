@@ -26,16 +26,19 @@ from .blocks import make_part_ali_col, nd_col, nondash_before
 from .maf import Ali, Comp, DASH, pos2col
 from .yama import yama_numpy
 
-try:  # native prep fast paths (see native/mzcore.cpp)
+try:  # native plan and fold (see native/mzcore.cpp)
     from .native import load as _load_native
 
     _mzcore = _load_native()
 except Exception:
     _mzcore = None
-_prep1 = getattr(_mzcore, "preyama_prep1", None) if _mzcore else None
+_plan1 = getattr(_mzcore, "preyama_plan1", None) if _mzcore else None
+_fold = getattr(_mzcore, "preyama_fold", None) if _mzcore else None
 _smooth_nat = getattr(_mzcore, "smooth_into", None) if _mzcore else None
 
 DPFn = Callable[..., np.ndarray]
+_U8 = np.dtype(np.uint8)
+_I64 = np.dtype(np.int64)
 
 
 def smooth(LB: np.ndarray, RB: np.ndarray, M: int, N: int, radius: int):
@@ -119,11 +122,30 @@ def maf_build(
     cbeg3: int,
     top: int,
     sp: sc.ScoreParams | None = None,
+    befores: Optional[bytes] = None,
 ) -> Optional[Ali]:
     """Reconstitute an Ali from the merged column matrix (mz_preyama.c:38-81).
 
     Template rows: all of a2's comps, then a3's comps (skipping a3's first
-    when top == 0)."""
+    when top == 0). One native pass (``preyama_fold``: the transpose, the
+    rows' sizes and starts, their Comps and the score) where the runtime
+    is built, else :func:`_maf_build_numpy`. ``befores``: each template
+    row's #non-dash before its cut, int64, where the plan counted them
+    (``preyama_plan1``)."""
+    if _fold is not None:
+        if sp is None:
+            sp = sc.current
+        r = _fold(A_new, np.empty(A_new.shape[::-1], _U8),
+                  a2.comps, cbeg2, a3.comps, 1 if top == 0 else 0, cbeg3,
+                  sp.ss, sp.gop, befores)
+        if r is not None:
+            comps, score = r
+            return Ali(comps, score) if comps else None
+    return _maf_build_numpy(A_new, a2, cbeg2, a3, cbeg3, top, sp)
+
+
+def _maf_build_numpy(A_new, a2, cbeg2, a3, cbeg3, top, sp) -> Optional[Ali]:
+    """:func:`maf_build` in numpy: its fallback, and the tests' reference."""
     ncol, nrow = A_new.shape
     templates: List[Tuple[Comp, int]] = [(c, cbeg2) for c in a2.comps]
     extra = a3.comps[1:] if top == 0 else a3.comps
@@ -165,12 +187,14 @@ def pre_yama(
     unused2_sink=None,
     sp: sc.ScoreParams | None = None,
     dp_fn: DPFn = yama_numpy,
+    tally: Optional[list] = None,
 ) -> Optional[Ali]:
     """pre_yama (mz_preyama.c:152-359): drive :func:`pre_yama_gen` with a
     synchronous per-problem DP function."""
     gen = pre_yama_gen(
         a1, a2, beg, end, radius, v, unused2_sink=unused2_sink, sp=sp,
         snapshot=False,  # driven to completion before the scan resumes
+        tally=tally,
     )
     try:
         job = next(gen)
@@ -190,6 +214,7 @@ def pre_yama_gen(
     unused2_sink=None,
     sp: sc.ScoreParams | None = None,
     snapshot: bool = False,
+    tally: Optional[list] = None,
 ):
     """Coroutine form of pre_yama: yields (A, B, LB, RB) DP jobs and
     receives merged column matrices back via ``send``; returns the final
@@ -203,7 +228,12 @@ def pre_yama_gen(
     the merged block.
 
     ``unused2_sink(ali)`` receives a2's slice when a1 contributes no rows
-    (K == 0, mz_preyama.c:193-200)."""
+    (K == 0, mz_preyama.c:193-200).
+
+    A v == 1 job is planned in one native pass (``preyama_plan1``: the
+    column lookups, A, B without its all-dash columns, the band) where
+    the runtime is built, else by the numpy code below, which is also the
+    v == 0 plan; ``tally[native] += 1``."""
     # When driven deferred, the merge scan resumes this coroutine after
     # it has moved past a1/a2 — safe without copies because keep_ali is
     # non-mutating (returns a fresh Ali) and Comp text buffers are
@@ -216,6 +246,23 @@ def pre_yama_gen(
         a2 = Ali(
             comps=[c.copy(text=c.text) for c in a2.comps], score=a2.score
         )
+    if v == 1 and _plan1 is not None:
+        job = _plan1(a1.comps, a2.comps, beg, end, radius)
+        if job is not None:
+            if tally is not None:
+                tally[1] += 1
+            if not job:  # B keeps no column
+                return None
+            a, b, lb, rb, M, K, N, L, cbeg1, cbeg2, befores = job
+            AL_new = yield (
+                np.ndarray((M, K), _U8, a), np.ndarray((N, L), _U8, b),
+                np.ndarray(M + 1, _I64, lb), np.ndarray(M + 1, _I64, rb),
+            )
+            return maf_build(AL_new, a1, cbeg1, a2, cbeg2, 0, sp=sp,
+                             befores=befores)
+    if tally is not None:
+        tally[0] += 1
+
     K = len(a1.comps)
     L = len(a2.comps) - 1
 
@@ -226,32 +273,6 @@ def pre_yama_gen(
     cend2 = nd_col(top2, end - top2.start)
     M = cend1 - cbeg1 + 1
     N = cend2 - cbeg2 + 1
-
-    # ---- v == 1 native fast path: compact + band + smooth in one C
-    # pass (K > 0 always holds here: a1 keeps all its rows) ----
-    if v == 1 and _prep1 is not None:
-        if L > 0:
-            B_full = np.stack(
-                [c.text[cbeg2 : cend2 + 1] for c in a2.comps[1:]], axis=1
-            )
-        else:
-            B_full = np.empty((N, 0), dtype=np.uint8)
-        B_out = np.empty_like(B_full)
-        LB = np.empty(M + 1, dtype=np.int64)
-        RB = np.empty(M + 1, dtype=np.int64)
-        Nn = _prep1(
-            B_full, N, L,
-            np.ascontiguousarray(top1.text[cbeg1 : cend1 + 1]), M,
-            np.ascontiguousarray(top2.text[cbeg2 : cend2 + 1]),
-            radius, B_out, LB, RB,
-        )
-        if Nn < 1:
-            return None
-        A = np.stack(
-            [c.text[cbeg1 : cend1 + 1] for c in a1.comps], axis=1
-        )
-        AL_new = yield (A, B_out[:Nn], LB, RB)
-        return maf_build(AL_new, a1, cbeg1, a2, cbeg2, 0, sp=sp)
 
     # column-major slices. L == 0 (a2 is a single-row block, e.g. a
     # pair2tb gap filler): the (N, 0) columns are vacuously all-dash,
