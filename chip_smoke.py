@@ -197,7 +197,8 @@ def _kernel_case(name, jobs, cw_want, timing=False, fw=None):
     from multiz_tpu_torch.tools import cuda_ms
 
     for A, B, LB, RB in jobs:
-        cw = P.pick_cw(np.asarray(LB), np.asarray(RB), A.shape[0], B.shape[0])
+        cw = P.route_band(np.asarray(LB), np.asarray(RB), A.shape[0],
+                          B.shape[0])[0]
         if cw_want is not None and cw != cw_want:
             raise AssertionError(f"{name}: job window {cw} != {cw_want}")
     m_pad, n_pad, Kp, Lp, need = P.bucket_of(jobs)
@@ -1048,16 +1049,14 @@ def phase_default_routing(sim, want_tba, t_inline, t_dev, counters):
 
 
 def native_runtime():
-    """The port's own native host runtime, or raise: the host lane
-    (yama_many) and replay_into are on the measured path."""
+    """The port's own native host runtime (it is built at import, or the
+    import raises), or raise where another module of that name was
+    loaded."""
     from multiz_tpu_torch import yama as Y
 
     mz = Y._mzcore
-    if mz is None or mz.__name__ != "multiz_tpu_torch._mzcore":
+    if mz.__name__ != "multiz_tpu_torch._mzcore":
         raise AssertionError(f"the port's native runtime is not loaded: {mz}")
-    for fn in ("yama_many", "replay_into", "band_info"):
-        if not hasattr(mz, fn):
-            raise AssertionError(f"native runtime lacks {fn}")
     return mz
 
 

@@ -5,7 +5,7 @@ operations (cited per function). Operates on multiz_tpu.maf.Ali/Comp with
 numpy uint8 texts; all coordinate recomputation uses cumulative-sum position
 maps instead of per-character scans. The merge scan's cuts (``keep_ali``,
 ``make_part_ali_col``, ``nd_col``, ``nondash_before``) are one native pass
-each over a block's rows, with the numpy code as their fallback.
+each over a block's rows.
 """
 
 from __future__ import annotations
@@ -15,14 +15,10 @@ from typing import List, Optional
 import numpy as np
 
 from . import scores as sc
-from .maf import Ali, Comp, DASH, col_back_over_dashes, pos2col
+from .maf import Ali, Comp, DASH
+from .native import load
 
-try:  # native block cuts (see native/mzcore.cpp keep_cut, part_cut, nd_col)
-    from .native import load as _load_native
-
-    _mzcore = _load_native()
-except Exception:
-    _mzcore = None
+_mzcore = load()  # the native host runtime (native/mzcore.cpp)
 
 # DNA complement table, byte-for-byte from multi_util.c:34-41 (note: '-' maps
 # to '-', unmapped characters map to ' ').
@@ -126,29 +122,21 @@ def _pm_of(c: Comp) -> Optional[np.ndarray]:
 
 
 def make_part_ali_col(a: Ali, cbeg: int, cend: int,
-                      sp: sc.ScoreParams | None = None,
-                      tally: Optional[list] = None) -> Optional[Ali]:
+                      sp: sc.ScoreParams | None = None) -> Optional[Ali]:
     """make_part_ali_col (multi_util.c:570-617): slice columns, drop dash
-    rows, remove dash columns, rescore. One native pass over the rows
-    (``part_cut``) where the runtime is built; ``tally[native] += 1``."""
+    rows, remove dash columns, rescore, in one native pass over the rows
+    (``part_cut``); a cut outside the block raises ValueError."""
     if cend - cbeg + 1 == 0:
         return None
-    cut = None
-    if _mzcore is not None:
-        if sp is None:
-            sp = sc.current
-        comps = a.comps
-        cut = _mzcore.part_cut([c.text for c in comps],
-                               [_pm_of(c) for c in comps], cbeg, cend,
-                               sp.ss, sp.gop)
-    if tally is not None:
-        tally[cut is not None] += 1
-    if cut is None:
-        return _make_part_ali_col_numpy(a, cbeg, cend, sp)
-    befores, sizes, mask, score = cut
+    if sp is None:
+        sp = sc.current
+    comps = a.comps
+    befores, sizes, mask, score = _mzcore.part_cut(
+        [c.text for c in comps], [_pm_of(c) for c in comps], cbeg, cend,
+        sp.ss, sp.gop)
     keep = None if mask is None else np.frombuffer(mask, dtype=np.bool_)
     out = Ali()
-    for c, before, size in zip(a.comps, befores, sizes):
+    for c, before, size in zip(comps, befores, sizes):
         if size == 0:
             continue
         text = c.text[cbeg : cend + 1]  # view: no memcpy
@@ -159,27 +147,6 @@ def make_part_ali_col(a: Ali, cbeg: int, cend: int,
     if not out.comps:
         return None
     out.score = float(score)
-    return out
-
-
-def _make_part_ali_col_numpy(a: Ali, cbeg: int, cend: int,
-                             sp: sc.ScoreParams | None) -> Optional[Ali]:
-    out = Ali()
-    for c in a.comps:
-        pm = c.pos_map()
-        before = int(pm[cbeg - 1]) if cbeg > 0 else 0
-        chs = int(pm[cend]) - before
-        if chs == 0:
-            continue
-        nc = c.copy(text=c.text[cbeg : cend + 1])  # view: no memcpy
-        nc.start = c.start + before
-        nc.size = chs
-        out.comps.append(nc)
-    if not out.comps:
-        return None
-    out = col_dash_rm(out)
-    if out is not None:
-        out.score = sc.score_range(out, 0, out.text_size, sp=sp)
     return out
 
 
@@ -212,8 +179,7 @@ def part_ali_by_pos(a: Ali, beg: int, end: int,
     return out
 
 
-def keep_ali(a: Ali, beg: int, sp: sc.ScoreParams | None = None,
-             tally: Optional[list] = None) -> Ali:
+def keep_ali(a: Ali, beg: int, sp: sc.ScoreParams | None = None) -> Ali:
     """Truncate a block to start at top-row position beg
     (multi_util.c:468-511). Returns a NEW Ali; the input block and its
     comps are left intact — deferred DP coroutines hold references to
@@ -221,26 +187,19 @@ def keep_ali(a: Ali, beg: int, sp: sc.ScoreParams | None = None,
     skip per-overlap snapshot copies (preyama.pre_yama_gen).
 
     The cut column and each row's count before it come from one native
-    pass (``keep_cut``) where the runtime is built: O(1) from a row's
-    current position map, else a byte count up to the cut, so a block
-    truncated many times never pays O(length) a cut. The child's
-    coordinate caches start empty. ``tally[native] += 1``."""
+    pass (``keep_cut``): O(1) from a row's current position map, else a
+    byte count up to the cut, so a block truncated many times never pays
+    O(length) a cut. The child's coordinate caches start empty. A beg
+    outside the top row raises ValueError."""
     comps = a.comps
     top = comps[0]
     k = beg - top.start
-    cut = None
-    if _mzcore is not None and 0 <= k < top.size:  # else the numpy raises
-        nd = top._nd
-        cut = _mzcore.keep_cut(
-            [c.text for c in comps], [_pm_of(c) for c in comps],
-            nd[1] if nd is not None and nd[0] is top.text else None, k)
-    if tally is not None:
-        tally[cut is not None] += 1
-    if cut is None:
-        col_beg = col_back_over_dashes(top, beg)
-        counts = [c.nondash_before(col_beg) for c in comps]
-    else:
-        col_beg, counts = cut
+    if not 0 <= k < top.size:
+        raise ValueError(f"pos2col: {beg} not in {top.start}-{top.end - 1}")
+    nd = top._nd
+    col_beg, counts = _mzcore.keep_cut(
+        [c.text for c in comps], [_pm_of(c) for c in comps],
+        nd[1] if nd is not None and nd[0] is top.text else None, k)
     new_comps = []
     for c, count in zip(comps, counts):
         if c.size - count < 1:
@@ -260,22 +219,14 @@ def keep_ali(a: Ali, beg: int, sp: sc.ScoreParams | None = None,
     return out
 
 
-def nd_col(c: Comp, k: int, tally: Optional[list] = None) -> int:
+def nd_col(c: Comp, k: int) -> int:
     """Column of c's (k+1)-th non-dash char, ``pos2col(c, c.start + k)``;
     ``len(c.text)`` where k == c.size, so that ``nd_col(c, k + 1) - 1`` is
     the C's walk right from the (k+1)-th over dash columns (multiz.c:
     117-133). Natively a scan from the row's nearer end (``nd_col``),
-    with no nd_idx over the whole row; ``tally[native] += 1``."""
-    col = None
-    if _mzcore is not None:
-        col = _mzcore.nd_col(c.text, k, c.size)
-    if tally is not None:
-        tally[col is not None] += 1
-    if col is not None:
-        return col
-    if k == c.size:
-        return int(c.text.shape[0])
-    return pos2col(c, c.start + k)
+    with no nd_idx over the whole row; a k outside [0, c.size] raises
+    ValueError, as ``pos2col``."""
+    return _mzcore.nd_col(c.text, k, c.size)
 
 
 def nondash_before(c: Comp, col: int) -> int:
@@ -285,11 +236,7 @@ def nondash_before(c: Comp, col: int) -> int:
     pm = c._pm
     if pm is not None and pm[0] is c.text:
         return 0 if col <= 0 else int(pm[1][col - 1])
-    if _mzcore is not None:
-        n = _mzcore.nondash_count(c.text, col)
-        if n is not None:
-            return n
-    return c.nondash_before(col)
+    return _mzcore.nondash_count(c.text, col)
 
 
 def sort_by_top_start(alis: List[Ali]) -> List[Ali]:

@@ -116,7 +116,7 @@ def dryrun_multichip(n_devices: int, device="cuda", timeout: float = 600.0):
     otherwise, or if a rank fails, this raises."""
     from .ops.synth import synth_jobs
     from .ops.yama_full import yama_batch
-    from .ops.yama_pack import pick_cw
+    from .ops.yama_pack import route_band
     from .parallel.distributed import spawn_ranks
     from .parallel.sharding import make_mesh, require_device
 
@@ -139,8 +139,8 @@ def dryrun_multichip(n_devices: int, device="cuda", timeout: float = 600.0):
           "to yama_numpy", flush=True)
 
     pjobs = packed_dryrun_jobs(n_devices)
-    cws = {pick_cw(np.asarray(LB), np.asarray(RB), A.shape[0], B.shape[0])
-           for A, B, LB, RB in pjobs}
+    cws = {route_band(np.asarray(LB), np.asarray(RB), A.shape[0],
+                      B.shape[0])[0] for A, B, LB, RB in pjobs}
     if 512 not in cws:
         raise AssertionError(f"dryrun workload lost its 512-lane shapes: {cws}")
     ranks = spawn_ranks(_dryrun_rank, n_devices, args=(n_devices, dev.type),

@@ -243,22 +243,6 @@ def pos2col(comp: Comp, pos: int) -> int:
     return int(comp.nd_idx()[k])
 
 
-def col_back_over_dashes(comp: Comp, pos: int) -> int:
-    """pos2col(comp, pos), then walk left over dash columns: the column
-    just after the previous non-dash char (0 if none). Replaces the
-    per-character ``while t[cb-1] == '-': cb -= 1`` walk of the C
-    (multiz.c:120-122) with two O(1) lookups (``blocks.keep_ali``'s
-    numpy cut)."""
-    k = pos - comp.start
-    if k < 0 or k >= comp.size:
-        raise ValueError(
-            f"pos2col: {pos} not in {comp.start}-{comp.start + comp.size - 1}"
-        )
-    if k == 0:
-        return 0
-    return int(comp.nd_idx()[k - 1]) + 1
-
-
 def col2pos_after(comp: Comp, col: int) -> int:
     """First sequence position at or after column ``col`` (multi_util.c:846-855).
 

@@ -147,15 +147,8 @@ def multiz_scan(
     sp: sc.ScoreParams | None = None,
     dp_submit: Optional[Callable] = None,
 ) -> None:
-    """The two-pointer merge scan (multiz.c:60-177).
-
-    Its block cuts (``keep_ali``, ``make_part_ali_col``, ``nd_col``) are
-    tallied, native and numpy, and added once at the end as the counters
-    ``multiz.cut`` and ``multiz.cut-numpy`` where the trace is on; so are
-    its pre_yama jobs' plans, as ``preyama.native`` and ``preyama.numpy``."""
+    """The two-pointer merge scan (multiz.c:60-177)."""
     i1 = i2 = 0
-    tally = [0, 0]  # cuts: [numpy, native]
-    plans = [0, 0]  # pre_yama plans: [numpy, native]
 
     def pop1():
         nonlocal i1
@@ -204,37 +197,36 @@ def multiz_scan(
         # first column (the dash walk back from its first base ends at
         # 0) to the column before its next base after beg2 - 1
         if beg1 < beg2 and beg2 - beg1 >= cfg.min_output_wid and w1.fh:
-            ce = nd_col(a1.comps[0], beg2 - beg1, tally) - 1
-            w1.write_part(make_part_ali_col(a1, 0, ce, sp, tally))
+            ce = nd_col(a1.comps[0], beg2 - beg1) - 1
+            w1.write_part(make_part_ali_col(a1, 0, ce, sp))
         elif beg2 < beg1 and beg1 - beg2 >= cfg.min_output_wid and w2.fh:
-            ce = nd_col(a2.comps[0], beg1 - beg2, tally) - 1
-            w2.write_part(make_part_ali_col(a2, 0, ce, sp, tally))
+            ce = nd_col(a2.comps[0], beg1 - beg2) - 1
+            w2.write_part(make_part_ali_col(a2, 0, ce, sp))
 
         beg = max(beg1, beg2)
         end = min(end1, end2)
 
         # leading gap columns before the first base (multiz.c:139-148)
         if beg == beg1:
-            cb = nd_col(a1.comps[0], 0, tally)
+            cb = nd_col(a1.comps[0], 0)
             if cb != 0 and w1.fh:
-                w1.write_part(make_part_ali_col(a1, 0, cb - 1, sp, tally))
+                w1.write_part(make_part_ali_col(a1, 0, cb - 1, sp))
         if beg == beg2:
-            cb = nd_col(a2.comps[0], 0, tally)
+            cb = nd_col(a2.comps[0], 0)
             if cb != 0 and w2.fh:
-                w2.write_part(make_part_ali_col(a2, 0, cb - 1, sp, tally))
+                w2.write_part(make_part_ali_col(a2, 0, cb - 1, sp))
 
         if dp_submit is not None:
             dp_submit(
                 pre_yama_gen(
                     a1, a2, beg, end, cfg.radius, v,
-                    unused2_sink=w2.write_part, sp=sp, tally=plans,
+                    unused2_sink=w2.write_part, sp=sp,
                 )
             )
         else:
             new_ali = pre_yama(
                 a1, a2, beg, end, cfg.radius, v,
                 unused2_sink=w2.write_part, sp=sp, dp_fn=cfg.dp_fn,
-                tally=plans,
             )
             if (
                 new_ali is not None
@@ -243,28 +235,23 @@ def multiz_scan(
                 out(new_ali)
 
         if end1 < end2:
-            a2 = keep_ali(a2, end1 + 1, sp, tally)
+            a2 = keep_ali(a2, end1 + 1, sp)
         if end2 < end1:
-            a1 = keep_ali(a1, end2 + 1, sp, tally)
+            a1 = keep_ali(a1, end2 + 1, sp)
 
         # trailing gap columns after the last base (end1 is a1's last)
         if end1 <= end2:
-            ce = nd_col(a1.comps[0], a1.comps[0].size - 1, tally)
+            ce = nd_col(a1.comps[0], a1.comps[0].size - 1)
             if ce < a1.text_size - 1 and w1.fh:
                 w1.write_part(make_part_ali_col(
-                    a1, ce + 1, a1.text_size - 1, sp, tally))
+                    a1, ce + 1, a1.text_size - 1, sp))
             a1 = pop1()
         if end2 <= end1:
-            ce = nd_col(a2.comps[0], a2.comps[0].size - 1, tally)
+            ce = nd_col(a2.comps[0], a2.comps[0].size - 1)
             if ce < a2.text_size - 1 and w2.fh:
                 w2.write_part(make_part_ali_col(
-                    a2, ce + 1, a2.text_size - 1, sp, tally))
+                    a2, ce + 1, a2.text_size - 1, sp))
             a2 = pop2()
-    if trace.on:
-        trace.count("multiz.cut", count=tally[1])
-        trace.count("multiz.cut-numpy", count=tally[0])
-        trace.count("preyama.native", count=plans[1])
-        trace.count("preyama.numpy", count=plans[0])
 
 
 @trace.traced("multiz")

@@ -2,15 +2,15 @@
 
 The extension is compiled on demand with g++ against the running
 Python's headers (no numpy C API, buffer protocol only), cached in the
-package's build directory (``multiz_tpu_torch/_build/``), and loaded via
-importlib as ``multiz_tpu_torch._mzcore``. Everything degrades gracefully:
-callers treat a None return as "use the NumPy fallback".
-
-Set MULTIZ_TPU_NO_NATIVE=1 to force the pure-Python path.
+package's build directory (``multiz_tpu_torch/_build/``), rebuilt when
+``mzcore.cpp`` is newer than it, and loaded via importlib as
+``multiz_tpu_torch._mzcore``. A failed build raises: there is no
+fallback, as there is none for the CUDA kernels (``_build.py``).
 """
 
 from __future__ import annotations
 
+import functools
 import importlib.util
 import os
 import subprocess
@@ -19,8 +19,6 @@ import sysconfig
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "mzcore.cpp")
 _BUILD = os.path.join(os.path.dirname(_HERE), "_build")
-_cached = None
-_tried = False
 
 
 def _so_path() -> str:
@@ -28,8 +26,10 @@ def _so_path() -> str:
     return os.path.join(_BUILD, "_mzcore" + suffix)
 
 
-def build(force: bool = False) -> str | None:
-    """Compile mzcore.cpp -> _mzcore.*.so; returns the path or None."""
+def build(force: bool = False) -> str:
+    """Compile mzcore.cpp -> _mzcore.*.so; returns the path.
+
+    Raises RuntimeError with g++'s message where the compile fails."""
     so = _so_path()
     if (
         not force
@@ -38,7 +38,7 @@ def build(force: bool = False) -> str | None:
     ):
         return so
     include = sysconfig.get_paths()["include"]
-    os.makedirs(_BUILD, exist_ok=True)
+    os.makedirs(os.path.dirname(so), exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
     cmd = [
         "g++", "-O3", "-funroll-loops", "-shared", "-fPIC", "-std=c++17",
@@ -46,33 +46,24 @@ def build(force: bool = False) -> str | None:
     ]
     try:
         res = subprocess.run(cmd, capture_output=True, timeout=120)
-    except (OSError, subprocess.TimeoutExpired):
-        return None
+    except (OSError, subprocess.TimeoutExpired) as e:
+        raise RuntimeError(f"cannot build the native host runtime: {e}") from e
     if res.returncode != 0:
         if os.path.exists(tmp):
             os.remove(tmp)
-        return None
+        raise RuntimeError(
+            "cannot build the native host runtime: g++ exited with "
+            f"{res.returncode}:\n{res.stderr.decode(errors='replace')}")
     os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
     return so
 
 
+@functools.cache
 def load():
-    """Return the _mzcore module, building it if needed, or None."""
-    global _cached, _tried
-    if _tried:
-        return _cached
-    _tried = True
-    if os.environ.get("MULTIZ_TPU_NO_NATIVE"):
-        return None
-    so = build()
-    if so is None:
-        return None
-    try:
-        spec = importlib.util.spec_from_file_location(
-            "multiz_tpu_torch._mzcore", so)
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-    except Exception:
-        return None
-    _cached = mod
+    """Return the _mzcore module, building it if needed; raises where it
+    cannot be built or loaded."""
+    spec = importlib.util.spec_from_file_location(
+        "multiz_tpu_torch._mzcore", build())
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
     return mod

@@ -19,6 +19,7 @@
 
 #include <cstdint>
 #include <cstring>
+#include <memory>
 #include <vector>
 
 namespace {
@@ -255,9 +256,46 @@ PyObject* score_range(PyObject*, PyObject* args) {
 
 // ---- block cuts of the merge scan (blocks.keep_ali, make_part_ali_col,
 // nd_col): one pass over a block's rows a cut, in place of several numpy
-// calls a row. Each returns None where it cannot answer (a text that is
-// not a contiguous byte buffer, rows of unequal length, a cut outside the
-// row); the caller then runs its numpy version, which raises or answers.
+// calls a row. Each answers or raises: a text that is not a 1-D byte
+// buffer, rows of unequal length or a cut outside the rows raise.
+
+// A row's text as bytes: a contiguous buffer read in place, else a 1-D
+// byte buffer (a strided view) copied.
+struct Text {
+    Py_buffer view{};
+    bool got = false;
+    std::vector<uint8_t> copy;
+    const uint8_t* p = nullptr;
+    Py_ssize_t n = 0;
+
+    Text() = default;
+    Text(const Text&) = delete;
+    Text& operator=(const Text&) = delete;
+    ~Text() { if (got) PyBuffer_Release(&view); }
+    // false with an exception set
+    bool load(PyObject* o) {
+        if (PyObject_GetBuffer(o, &view, PyBUF_SIMPLE) == 0) {
+            got = true;
+            p = static_cast<const uint8_t*>(view.buf);
+            n = view.len;
+            return true;
+        }
+        PyErr_Clear();
+        if (PyObject_GetBuffer(o, &view, PyBUF_RECORDS_RO) != 0) return false;
+        got = true;
+        if (view.ndim != 1 || view.itemsize != 1) {
+            PyErr_SetString(PyExc_ValueError, "a row's text is not 1-D bytes");
+            return false;
+        }
+        n = view.shape[0];
+        const Py_ssize_t st = view.strides[0];
+        const uint8_t* b = static_cast<const uint8_t*>(view.buf);
+        copy.resize(n);
+        for (Py_ssize_t i = 0; i < n; ++i) copy[i] = b[i * st];
+        p = copy.data();
+        return true;
+    }
+};
 
 // #non-dash bytes of p[0:n].
 inline Py_ssize_t count_nondash(const uint8_t* p, Py_ssize_t n) {
@@ -296,16 +334,17 @@ Py_ssize_t kth_nondash(const uint8_t* p, Py_ssize_t n, Py_ssize_t k,
 
 // maf.Comp's slots, read and written through their member offsets, as
 // its slot descriptors do, in place of an attribute lookup each: resolved
-// once for Comp's type (the first one seen). A type whose slots are not
-// all object members is not resolved, and the caller returns None.
+// once for Comp's type (the first one seen). Any other type, or one whose
+// slots are not all object members, raises TypeError.
 struct CompSlots {
     enum { TEXT, START, SIZE, SRC, STRAND, SRC_SIZE, PARALOG, PM, ND, N };
     PyTypeObject* tp = nullptr;
     Py_ssize_t off[N];
 
+    // false with an exception set
     bool resolve(PyTypeObject* t) {
         if (t == tp) return true;
-        if (tp) return false;
+        if (tp) return refuse(t);
         static const char* names[N] = {"text", "start", "size", "src",
                                        "strand", "src_size", "paralog",
                                        "_pm", "_nd"};
@@ -320,12 +359,16 @@ struct CompSlots {
             Py_XDECREF(d);
             if (!ok) {
                 PyErr_Clear();
-                return false;
+                return refuse(t);
             }
         }
         Py_INCREF(t);  // the offsets stay valid while the type lives
         tp = t;
         return true;
+    }
+    static bool refuse(PyTypeObject* t) {
+        PyErr_Format(PyExc_TypeError, "%s is not maf.Comp", t->tp_name);
+        return false;
     }
     // a slot's value, borrowed (nullptr where it is unset)
     PyObject* get(PyObject* o, int i) const {
@@ -341,25 +384,28 @@ struct CompSlots {
     }
 } slots;
 
-// The rows of a block as byte buffers, each with its optional int64
-// position map (Comp.pos_map, held where it is current: pm[c] = #non-dash
-// in text[:c+1]). A map of the wrong length is ignored.
+// The rows of a block as byte buffers (Text), each with its optional
+// int64 position map (Comp.pos_map, held where it is current: pm[c] =
+// #non-dash in text[:c+1]). A map of the wrong length is ignored.
 struct Rows {
-    std::vector<Py_buffer> text, pm;
+    std::unique_ptr<Text[]> text;
+    std::vector<Py_buffer> pm;
     std::vector<char> has_pm;
-    Py_ssize_t n = 0, got = 0, W = -1;
+    Py_ssize_t n = 0, W = -1;
 
     ~Rows() {
-        for (Py_ssize_t i = 0; i < got; ++i) {
-            PyBuffer_Release(&text[i]);
+        for (Py_ssize_t i = 0; i < n; ++i)
             if (has_pm[i]) PyBuffer_Release(&pm[i]);
-        }
     }
-    // false with no exception set: the caller returns None
+    // false with an exception set
     bool load(PyObject* texts, PyObject* pms) {
-        n = PySequence_Fast_GET_SIZE(texts);
-        if (n < 1 || PySequence_Fast_GET_SIZE(pms) != n) return false;
-        resize();
+        const Py_ssize_t m = PySequence_Fast_GET_SIZE(texts);
+        if (m < 1 || PySequence_Fast_GET_SIZE(pms) != m) {
+            PyErr_SetString(PyExc_ValueError,
+                            "a block's rows and maps do not match");
+            return false;
+        }
+        resize(m);
         for (Py_ssize_t i = 0; i < n; ++i) {
             if (!add(i, PySequence_Fast_GET_ITEM(texts, i))) return false;
             take_pm(i, PySequence_Fast_GET_ITEM(pms, i));
@@ -369,14 +415,21 @@ struct Rows {
     // The rows of a list of maf.Comps from row `from` on (none is fine),
     // each with its position map where it is current (Comp._pm).
     bool load_comps(PyObject* comps, Py_ssize_t from) {
-        n = PySequence_Fast_GET_SIZE(comps) - from;
-        if (n < 0) return false;
-        resize();
+        const Py_ssize_t m = PySequence_Fast_GET_SIZE(comps) - from;
+        if (m < 0) {
+            PyErr_SetString(PyExc_ValueError, "a block has too few rows");
+            return false;
+        }
+        resize(m);
         for (Py_ssize_t i = 0; i < n; ++i) {
             PyObject* c = PySequence_Fast_GET_ITEM(comps, from + i);
             if (!slots.resolve(Py_TYPE(c))) return false;
             PyObject* t = slots.get(c, slots.TEXT);
-            if (!t || !add(i, t)) return false;
+            if (!t) {
+                PyErr_SetString(PyExc_AttributeError, "a Comp has no text");
+                return false;
+            }
+            if (!add(i, t)) return false;
             PyObject* m = slots.get(c, slots.PM);
             if (m && PyTuple_Check(m) && PyTuple_GET_SIZE(m) == 2 &&
                 PyTuple_GET_ITEM(m, 0) == t)
@@ -384,9 +437,7 @@ struct Rows {
         }
         return true;
     }
-    const uint8_t* row(Py_ssize_t i) const {
-        return static_cast<const uint8_t*>(text[i].buf);
-    }
+    const uint8_t* row(Py_ssize_t i) const { return text[i].p; }
     // #non-dash in row i's text[:col], 0 <= col <= W
     Py_ssize_t before(Py_ssize_t i, Py_ssize_t col) const {
         if (col <= 0) return 0;
@@ -396,19 +447,20 @@ struct Rows {
     }
 
   private:
-    void resize() {
-        text.resize(n);
-        pm.resize(n);
-        has_pm.assign(n, 0);
+    void resize(Py_ssize_t m) {
+        n = m;
+        text.reset(new Text[m]);
+        pm.resize(m);
+        has_pm.assign(m, 0);
     }
     bool add(Py_ssize_t i, PyObject* t) {  // row i's text, of length W
-        if (PyObject_GetBuffer(t, &text[i], PyBUF_SIMPLE) != 0) {
-            PyErr_Clear();
+        if (!text[i].load(t)) return false;
+        if (W < 0) W = text[i].n;
+        if (text[i].n != W) {
+            PyErr_SetString(PyExc_ValueError, "a block's rows differ in length");
             return false;
         }
-        ++got;
-        if (W < 0) W = text[i].len;
-        return text[i].len == W;
+        return true;
     }
     void take_pm(Py_ssize_t i, PyObject* m) {  // row i's map, if it fits
         if (m == Py_None) return;
@@ -430,11 +482,12 @@ struct Fast {
     ~Fast() { Py_XDECREF(o); }
 };
 
-// keep_cut(texts, pms, nd, k) -> (col_beg, counts) | None
+// keep_cut(texts, pms, nd, k) -> (col_beg, counts)
 //   keep_ali's cut (multi_util.c:468-511): col_beg is the column just
 //   after the top row's k-th non-dash char (0 where k == 0), found from
 //   the top row's nd_idx (int64, or None) or its position map, else by a
-//   scan; counts[i] is row i's #non-dash before col_beg.
+//   scan; counts[i] is row i's #non-dash before col_beg. ValueError where
+//   the top row holds fewer than k non-dash chars.
 PyObject* keep_cut(PyObject*, PyObject* args) {
     PyObject *to, *pmo, *ndo;
     Py_ssize_t k;
@@ -442,10 +495,12 @@ PyObject* keep_cut(PyObject*, PyObject* args) {
     Fast texts(to), pms(pmo);
     if (!texts.o || !pms.o) return nullptr;
     Rows R;
-    if (!R.load(texts.o, pms.o) || k < 0) Py_RETURN_NONE;
+    if (!R.load(texts.o, pms.o)) return nullptr;
     const Py_ssize_t W = R.W;
     Py_ssize_t col_beg = -1;
-    if (k == 0) {
+    if (k < 0) {
+        col_beg = W + 1;  // no such char
+    } else if (k == 0) {
         col_beg = 0;
     } else if (ndo != Py_None) {
         Buf nd(ndo, PyBUF_SIMPLE);
@@ -466,7 +521,10 @@ PyObject* keep_cut(PyObject*, PyObject* args) {
         Py_ssize_t c = kth_nondash(R.row(0), W, k - 1, false);
         if (c >= 0) col_beg = c + 1;
     }
-    if (col_beg < 0 || col_beg > W) Py_RETURN_NONE;
+    if (col_beg < 0 || col_beg > W) {
+        PyErr_Format(PyExc_ValueError, "keep_cut: no non-dash char %zd", k);
+        return nullptr;
+    }
     PyObject* counts = PyList_New(R.n);
     if (!counts) return nullptr;
     for (Py_ssize_t i = 0; i < R.n; ++i)
@@ -475,12 +533,12 @@ PyObject* keep_cut(PyObject*, PyObject* args) {
 }
 
 // part_cut(texts, pms, cbeg, cend, ss, gop) -> (befores, sizes, mask, score)
-//   | None
 //   make_part_ali_col's cut (multi_util.c:570-617) of columns
 //   [cbeg, cend]: each row's #non-dash before and inside them (a row
 //   whose size is 0 is dropped), mask (bytes, 1 = keep) where a column
 //   of the range is all dash, else None, and the sop_score of the kept
-//   rows over the kept columns.
+//   rows over the kept columns. ValueError where the range is empty or
+//   leaves the rows.
 PyObject* part_cut(PyObject*, PyObject* args) {
     PyObject *to, *pmo, *sso, *gopo;
     Py_ssize_t cbeg, cend;
@@ -497,8 +555,12 @@ PyObject* part_cut(PyObject*, PyObject* args) {
     Fast texts(to), pms(pmo);
     if (!texts.o || !pms.o) return nullptr;
     Rows R;
-    if (!R.load(texts.o, pms.o) || cbeg < 0 || cend < cbeg || cend >= R.W)
-        Py_RETURN_NONE;
+    if (!R.load(texts.o, pms.o)) return nullptr;
+    if (cbeg < 0 || cend < cbeg || cend >= R.W) {
+        PyErr_Format(PyExc_ValueError, "part_cut: columns %zd-%zd of %zd",
+                     cbeg, cend, R.W);
+        return nullptr;
+    }
     const Py_ssize_t width = cend - cbeg + 1;
     std::vector<Py_ssize_t> bef(R.n), sz(R.n);
     std::vector<const uint8_t*> kept;
@@ -563,42 +625,46 @@ Py_ssize_t nd_col_of(const uint8_t* p, Py_ssize_t W, Py_ssize_t k,
                           : kth_nondash(p, W, n - 1 - k, true);
 }
 
-// nd_col(text, k, n) -> column | None
+// nd_col(text, k, n) -> column
 //   nd_col_of over a row, in place of nd_idx over the whole row.
+//   ValueError where k is outside [0, n] or the row has no such char.
 PyObject* nd_col(PyObject*, PyObject* args) {
     PyObject* to;
     Py_ssize_t k, n;
     if (!PyArg_ParseTuple(args, "Onn", &to, &k, &n)) return nullptr;
-    Buf T(to, PyBUF_SIMPLE);
-    if (!T.ok) {
-        PyErr_Clear();
-        Py_RETURN_NONE;
+    Text T;
+    if (!T.load(to)) return nullptr;
+    Py_ssize_t c = nd_col_of(T.p, T.n, k, n);
+    if (c < 0) {
+        PyErr_Format(PyExc_ValueError, "nd_col: no non-dash char %zd of %zd",
+                     k, n);
+        return nullptr;
     }
-    Py_ssize_t c = nd_col_of(T.u8(), T.len(), k, n);
-    if (c < 0) Py_RETURN_NONE;
     return PyLong_FromSsize_t(c);
 }
 
-// nondash_count(text, col) -> #non-dash in text[:col] | None
-//   Comp.nondash_before without the row's position map.
+// nondash_count(text, col) -> #non-dash in text[:col]
+//   Comp.nondash_before without the row's position map: 0 where col <= 0,
+//   IndexError where col is past the row.
 PyObject* nondash_count(PyObject*, PyObject* args) {
     PyObject* to;
     Py_ssize_t col;
     if (!PyArg_ParseTuple(args, "On", &to, &col)) return nullptr;
-    Buf T(to, PyBUF_SIMPLE);
-    if (!T.ok) {
-        PyErr_Clear();
-        Py_RETURN_NONE;
+    Text T;
+    if (!T.load(to)) return nullptr;
+    if (col > T.n) {
+        PyErr_Format(PyExc_IndexError, "nondash_count: column %zd of %zd",
+                     col, T.n);
+        return nullptr;
     }
-    if (col < 0 || col > T.len()) Py_RETURN_NONE;
-    return PyLong_FromSsize_t(count_nondash(T.u8(), col));
+    return PyLong_FromSsize_t(col <= 0 ? 0 : count_nondash(T.p, col));
 }
 
 // band_info(LB, RB, M, N, row_chunk, cws) -> (cw, maxwidth, cells)
 //   One pass over a job's band: entry validation (mz_yama.c:58-71),
-//   window-ladder selection (yama_pack.fits_packed/pick_cw) and band
-//   cell counting — replaces three numpy passes per job in the batched
-//   dispatch admission loop. LB/RB int64 (>= M+1); cws: int64 ladder.
+//   window-ladder selection (yama_pack.route_band, the JAX stream's
+//   admission rule) and band cell counting in the batched dispatch
+//   admission loop. LB/RB int64 (>= M+1); cws: int64 ladder.
 //   cw == 0 means no ladder width fits (host fallback).
 PyObject* band_info(PyObject*, PyObject* args) {
     PyObject *lbo, *rbo, *cwso;
@@ -648,7 +714,7 @@ PyObject* band_info(PyObject*, PyObject* args) {
             if (w > width) width = w;
             int64_t rb = RB[r] < N ? RB[r] : N;
             cells += rb - LB[r];
-            if (r >= 1) {  // fits_packed skips chunks with lo > hi
+            if (r >= 1) {  // the ladder skips chunks with lo > hi
                 int64_t nd = RB[r] + 1 - w0;
                 if (nd > need) need = nd;
             }
@@ -715,25 +781,24 @@ PyObject* smooth_into(PyObject*, PyObject* args) {
 // ---- pre_yama's DP job (preyama.pre_yama_gen, v == 1) and the fold of
 // its result (preyama.maf_build): one pass each over a block's Comps, in
 // place of a dozen numpy calls a job and a Python loop over the rows.
-// Each returns None where it cannot answer (a text that is not a
-// contiguous byte buffer, rows of unequal length, a column outside the
-// rows); the caller then runs its numpy version, which raises or answers.
+// Each answers or raises, as the block cuts do.
 
 PyObject* s_empty;  // () for tp_new
 
-// An int slot of a Comp; false (no exception set) where it is not one.
+// An int slot of a Comp (any integer); false with an exception set
+// where it is unset or not an integer.
 bool int_slot(PyObject* o, int i, Py_ssize_t* out) {
     PyObject* v = slots.get(o, i);
-    if (v && PyLong_CheckExact(v)) {
-        *out = PyLong_AsSsize_t(v);
-        if (!(*out == -1 && PyErr_Occurred())) return true;
+    if (!v) {
+        PyErr_SetString(PyExc_AttributeError, "a Comp slot is unset");
+        return false;
     }
-    PyErr_Clear();
-    return false;
+    *out = PyNumber_AsSsize_t(v, PyExc_OverflowError);
+    return !(*out == -1 && PyErr_Occurred());
 }
 
 // preyama_plan1(comps1, comps2, beg, end, radius)
-//   -> (A, B, LB, RB, M, K, N, L, cbeg1, cbeg2, befores) | 0 | None
+//   -> (A, B, LB, RB, M, K, N, L, cbeg1, cbeg2, befores) | 0
 //   pre_yama's v == 1 job (mz_preyama.c:152-259) in one pass: the four
 //   column lookups of beg and end in the top rows (nd_col's rule), A =
 //   every row of comps1 over [cbeg1, cend1] as (M, K) columns, B = the
@@ -743,7 +808,7 @@ bool int_slot(PyObject* o, int i, Py_ssize_t* out) {
 //   bytearrays; LB, RB: int64 bytearrays of M + 1; befores: int64 bytes,
 //   each row's #non-dash before its cut (comps1's, then comps2's but its
 //   first), for preyama_fold. 0 where B keeps no column (pre_yama
-//   returns None).
+//   returns None). ValueError where beg or end is not on both top rows.
 PyObject* preyama_plan1(PyObject*, PyObject* args) {
     PyObject *c1o, *c2o;
     Py_ssize_t beg, end;
@@ -753,23 +818,28 @@ PyObject* preyama_plan1(PyObject*, PyObject* args) {
     Fast c1(c1o), c2(c2o);
     if (!c1.o || !c2.o) return nullptr;
     Rows R1, R2;
-    if (!R1.load_comps(c1.o, 0) || !R2.load_comps(c2.o, 0) || R1.n < 1 ||
-        R2.n < 1)
-        Py_RETURN_NONE;
+    if (!R1.load_comps(c1.o, 0) || !R2.load_comps(c2.o, 0)) return nullptr;
+    if (R1.n < 1 || R2.n < 1) {
+        PyErr_SetString(PyExc_ValueError, "preyama_plan1: a block has no rows");
+        return nullptr;
+    }
     Py_ssize_t st1, sz1, st2, sz2;
     PyObject* top1 = PySequence_Fast_GET_ITEM(c1.o, 0);
     PyObject* top2 = PySequence_Fast_GET_ITEM(c2.o, 0);
     if (!int_slot(top1, slots.START, &st1) || !int_slot(top1, slots.SIZE, &sz1) ||
         !int_slot(top2, slots.START, &st2) || !int_slot(top2, slots.SIZE, &sz2))
-        Py_RETURN_NONE;
+        return nullptr;
     const Py_ssize_t W1 = R1.W, W2 = R2.W;
     const Py_ssize_t cb1 = nd_col_of(R1.row(0), W1, beg - st1, sz1);
     const Py_ssize_t ce1 = nd_col_of(R1.row(0), W1, end - st1, sz1);
     const Py_ssize_t cb2 = nd_col_of(R2.row(0), W2, beg - st2, sz2);
     const Py_ssize_t ce2 = nd_col_of(R2.row(0), W2, end - st2, sz2);
     if (cb1 < 0 || ce1 < cb1 || ce1 >= W1 || cb2 < 0 || ce2 < cb2 ||
-        ce2 >= W2)
-        Py_RETURN_NONE;
+        ce2 >= W2) {
+        PyErr_Format(PyExc_ValueError,
+                     "preyama_plan1: %zd-%zd not on both top rows", beg, end);
+        return nullptr;
+    }
     const Py_ssize_t K = R1.n, L = R2.n - 1;
     const Py_ssize_t M = ce1 - cb1 + 1, N = ce2 - cb2 + 1;
     if (L == 0) return PyLong_FromLong(0);  // every column of B is empty
@@ -846,7 +916,7 @@ PyObject* preyama_plan1(PyObject*, PyObject* args) {
 }
 
 // preyama_fold(AL, T, comps_a, cbeg_a, comps_b, skip_b, cbeg_b, ss, gop,
-//              befores=None) -> (comps, score) | None
+//              befores=None) -> (comps, score)
 //   maf_build (mz_preyama.c:38-81) in one pass: AL, the DP's merged
 //   (ncol, nrow) uint8 columns, transposed into T, a fresh (nrow, ncol)
 //   uint8 array; row i's template is comps_a[i], then comps_b[skip_b:],
@@ -854,7 +924,9 @@ PyObject* preyama_plan1(PyObject*, PyObject* args) {
 //   copy of its template (as Comp.copy) with text T[i], start advanced by
 //   the template's #non-dash before its cut (befores[i], int64, where
 //   given: preyama_plan1's), and size its #non-dash; score is the
-//   sop_score of those rows (0 for fewer than two).
+//   sop_score of those rows (0 for fewer than two). AL and T must be
+//   C-contiguous; ValueError where their shapes, the templates or the
+//   cuts do not fit together.
 PyObject* preyama_fold(PyObject*, PyObject* args) {
     PyObject *alo, *to, *cao, *cbo, *sso, *gopo, *bfo = Py_None;
     Py_ssize_t cbeg_a, skip_b, cbeg_b;
@@ -869,20 +941,24 @@ PyObject* preyama_fold(PyObject*, PyObject* args) {
         return nullptr;
     }
     Buf AL(alo, PyBUF_C_CONTIGUOUS), T(to, PyBUF_C_CONTIGUOUS | PyBUF_WRITABLE);
-    if (!AL.ok || !T.ok) {
-        PyErr_Clear();
-        Py_RETURN_NONE;
-    }
+    if (!AL.ok || !T.ok) return nullptr;
     if (AL.view.ndim != 2 || AL.view.itemsize != 1 || T.view.ndim != 2 ||
-        T.view.itemsize != 1)
-        Py_RETURN_NONE;
+        T.view.itemsize != 1 || T.view.shape[0] != AL.view.shape[1] ||
+        T.view.shape[1] != AL.view.shape[0]) {
+        PyErr_SetString(PyExc_ValueError,
+                        "preyama_fold: AL and T are not a matrix of bytes "
+                        "and its transpose");
+        return nullptr;
+    }
     const Py_ssize_t ncol = AL.view.shape[0], nrow = AL.view.shape[1];
-    if (T.view.shape[0] != nrow || T.view.shape[1] != ncol) Py_RETURN_NONE;
     Fast ca(cao), cb(cbo);
     if (!ca.o || !cb.o) return nullptr;
     const Py_ssize_t na = PySequence_Fast_GET_SIZE(ca.o);
-    if (skip_b < 0 || na + PySequence_Fast_GET_SIZE(cb.o) - skip_b != nrow)
-        Py_RETURN_NONE;
+    if (skip_b < 0 || na + PySequence_Fast_GET_SIZE(cb.o) - skip_b != nrow) {
+        PyErr_SetString(PyExc_ValueError,
+                        "preyama_fold: the templates are not AL's rows");
+        return nullptr;
+    }
     const uint8_t* al = AL.u8();
     uint8_t* t = T.u8();
     std::vector<Py_ssize_t> size(nrow, 0);
@@ -900,18 +976,24 @@ PyObject* preyama_fold(PyObject*, PyObject* args) {
     std::vector<Py_ssize_t> before(nrow, 0);
     if (bfo != Py_None) {
         Buf BF(bfo, PyBUF_SIMPLE);
-        if (!BF.ok || BF.len() != nrow * 8) {
-            PyErr_Clear();
-            Py_RETURN_NONE;
+        if (!BF.ok) return nullptr;
+        if (BF.len() != nrow * 8) {
+            PyErr_SetString(PyExc_ValueError,
+                            "preyama_fold: befores is not an int64 a row");
+            return nullptr;
         }
         for (Py_ssize_t r = 0; r < nrow; ++r)
             before[r] = (Py_ssize_t) reinterpret_cast<const int64_t*>(BF.u8())[r];
     } else {
         Rows RA, RB;
-        if (!RA.load_comps(ca.o, 0) || !RB.load_comps(cb.o, skip_b) ||
-            cbeg_a < 0 || cbeg_b < 0 || (RA.n && cbeg_a > RA.W) ||
-            (RB.n && cbeg_b > RB.W))
-            Py_RETURN_NONE;
+        if (!RA.load_comps(ca.o, 0) || !RB.load_comps(cb.o, skip_b))
+            return nullptr;
+        if (cbeg_a < 0 || cbeg_b < 0 || (RA.n && cbeg_a > RA.W) ||
+            (RB.n && cbeg_b > RB.W)) {
+            PyErr_SetString(PyExc_ValueError,
+                            "preyama_fold: a cut is outside its template");
+            return nullptr;
+        }
         for (Py_ssize_t r = 0; r < nrow; ++r)
             before[r] = r < na ? RA.before(r, cbeg_a) : RB.before(r - na, cbeg_b);
     }
@@ -921,10 +1003,13 @@ PyObject* preyama_fold(PyObject*, PyObject* args) {
             r < na ? PySequence_Fast_GET_ITEM(ca.o, r)
                    : PySequence_Fast_GET_ITEM(cb.o, skip_b + r - na);
         if (size[r] == 0) continue;
-        if (!slots.resolve(Py_TYPE(d))) Py_RETURN_NONE;
+        if (!slots.resolve(Py_TYPE(d))) return nullptr;
         for (int s : {slots.START, slots.SRC, slots.STRAND, slots.SRC_SIZE,
                       slots.PARALOG})
-            if (!slots.get(d, s)) Py_RETURN_NONE;  // unset: Comp.copy raises
+            if (!slots.get(d, s)) {  // as Comp.copy
+                PyErr_SetString(PyExc_AttributeError, "a Comp slot is unset");
+                return nullptr;
+            }
     }
     std::vector<const uint8_t*> kept;
     kept.reserve(nrow);

@@ -43,7 +43,7 @@ import torch
 from .. import _build
 from .. import scores as sc
 from .. import yama as Y
-from ..yama import _check_band, column_stats
+from ..yama import _check_band
 
 from ..parallel.sharding import pad_batch, require_device, shard_stacked
 from ..scores import from_score_params
@@ -124,27 +124,20 @@ def stack_host(jobs, m_pad: int, n_pad: int) -> dict:
     """The batched operands of ``stack_jobs`` as int32 numpy arrays, keyed
     by ``STACK_KEYS``.
 
-    Built as ``yama_jax.stack_jobs`` builds them: with the native host
-    runtime the column statistics are written straight into the batch
-    buffers (``mzcore.colstats_into``), otherwise ``column_stats`` fills
-    them."""
+    Built as ``yama_jax.stack_jobs`` builds them: the column statistics
+    are written straight into the batch buffers
+    (``mzcore.colstats_into``)."""
     shapes = _stack_shapes(m_pad, n_pad)
     out = {k: np.zeros((len(jobs), *shapes[k]), np.int32)
            for k in STACK_KEYS}
-    mz = Y._mzcore
 
     def fill(i, side, X):
         s = side.lower()
         ncol, nrow = X.shape
-        dst = (out["hist" + side][i], out[s + "0"][i], out[s + "1"][i],
-               out["p" + s][i])
-        if mz is not None:
-            mz.colstats_into(np.ascontiguousarray(X), ncol, nrow,
-                             sc.BYTE2CAT, *dst)
-        else:
-            st = column_stats(X)
-            for d, v in zip(dst, (st.hist, st.nond, st.ndash, st.pair)):
-                d[: ncol + 1] = v
+        Y._mzcore.colstats_into(
+            np.ascontiguousarray(X), ncol, nrow, sc.BYTE2CAT,
+            out["hist" + side][i], out[s + "0"][i], out[s + "1"][i],
+            out["p" + s][i])
 
     for i, (A, B, LB, RB) in enumerate(jobs):
         M, K = A.shape
@@ -766,7 +759,7 @@ def yama_batch(jobs, sp: sc.ScoreParams | None = None, device="cuda",
 
     Problems are bucketed by (``_pad_to(M)``, ``_pad_to(N)``); each
     bucket's DP and traceback run on the device, the replay on the host
-    (``mzcore.replay_into``, else ``yama._replay``). Returns the merged
+    (``mzcore.replay_into``). Returns the merged
     column matrices in input order, bit-identical to ``yama_numpy``.
 
     With ``mesh`` (``parallel.sharding.make_mesh``) in place of

@@ -12,7 +12,7 @@ forward kernel (``ops/yama_dp.py``), the traceback kernel
 copies and replays the scripts (``mzcore.replay_into``). Results are
 bit-identical to ``yama.yama_numpy``.
 
-Routing keeps the JAX stream's window-ladder admission (``pick_cw``)
+Routing keeps the JAX stream's window-ladder admission (``route_band``)
 and bucket keys. Its thresholds (``MZ_HOST_JOB_CELLS`` /
 ``MZ_HOST_ROUTE_CELLS`` / ``MZ_FLUSH_CELLS``) default by device type
 (``ROUTING_DEFAULTS``): on the CPU to the JAX stream's, set on the TPU;
@@ -55,7 +55,7 @@ from .. import trace
 from .. import yama as Y
 from ..parallel.sharding import require_device
 from ..scores import from_score_params
-from ..yama import YamaError, _check_band, yama_numpy
+from ..yama import YamaError, yama_numpy
 from .prep import _round_up, decode_wire, prep, wire_layout
 from .yama_dp import MAX_LANES, dp_forward
 from .yama_tb import payload_width, traceback
@@ -147,57 +147,23 @@ def _pack_cat_rows(dst, X, nrow, rp2):
         dst[:hi, :ncol] |= cat[rp2:] << 4
 
 
-def fits_packed(LB, RB, M, N, cw: int = CWS[0]) -> bool:
-    """True iff every chunk window fits in ``cw`` lanes."""
-    mp1 = M + 1
-    nchunks = -(-mp1 // ROW_CHUNK)
-    for t in range(nchunks):
-        r0 = min(max(t * ROW_CHUNK, 1), M)
-        w0 = (int(LB[r0]) // 128) * 128
-        hi = min(t * ROW_CHUNK + ROW_CHUNK - 1, M)
-        lo = max(t * ROW_CHUNK, 1)
-        if lo > hi:
-            continue
-        if int(np.max(RB[lo : hi + 1])) + 1 - w0 > cw - 1:
-            return False
-    return True
-
-
-def pick_cw(LB, RB, M, N) -> int | None:
-    """Smallest window width on the CWS ladder that fits this problem's
-    band, or None (-> host oracle fallback)."""
-    for cw in CWS:
-        if fits_packed(LB, RB, M, N, cw):
-            return cw
-    return None
-
-
 def route_band(LB, RB, M: int, N: int) -> tuple:
-    """(cw, w, cells) of one job's band (int64 LB, RB): the window width
+    """(cw, w, cells) of one job's band (int LB, RB): the window width
     on the CWS ladder, or None when the job goes to the exact oracle;
     the widest band row RB - LB; the band cells. Validates the band
-    (YamaError). One native pass (``mzcore.band_info``) where the host
-    runtime is built, else ``pick_cw`` in Python; the same answer.
+    (YamaError). One native pass (``mzcore.band_info``).
 
     The window ladder admits rows 1..M; row 0's band must fit the
     kernel's lanes too, and band bounds stay below 65536 columns."""
-    mz = Y._mzcore
-    binfo = getattr(mz, "band_info", None) if mz else None
-    if binfo is not None:
-        try:
-            cw, w, cells = binfo(
-                np.ascontiguousarray(LB[: M + 1]),
-                np.ascontiguousarray(RB[: M + 1]), M, N, ROW_CHUNK, _CWS,
-            )
-        except ValueError as e:
-            raise YamaError(str(e))
-        cw = cw or None
-    else:
-        _check_band(LB, RB, M, N)
-        cells = int((np.minimum(RB[: M + 1], N) - LB[: M + 1]).sum()) + M
-        cw = pick_cw(LB, RB, M, N)
-        w = int((RB[: M + 1] - LB[: M + 1]).max())
-    if N > 65535 or w + 1 > MAX_LANES:
+    try:
+        cw, w, cells = Y._mzcore.band_info(
+            np.ascontiguousarray(LB[: M + 1], dtype=np.int64),
+            np.ascontiguousarray(RB[: M + 1], dtype=np.int64),
+            M, N, ROW_CHUNK, _CWS,
+        )
+    except ValueError as e:
+        raise YamaError(str(e))
+    if cw == 0 or N > 65535 or w + 1 > MAX_LANES:
         cw = None
     return cw, w, cells
 
@@ -364,14 +330,7 @@ class PackedDPStream:
         if not chunk:
             return
         total = sum(c[5] for c in chunk)
-        mz = Y._mzcore
-        many = getattr(mz, "yama_many", None) if mz else None
-        if many is None:
-            for slot, A, B, LB, RB, _ in chunk:
-                self.results[slot] = yama_numpy(A, B, LB, RB, sp=self.sp)
-            with self._lock:
-                self._host_backlog -= total
-            return
+        many = Y._mzcore.yama_many
         # all Python/numpy prep on this thread; the worker runs only the
         # GIL-free native batch call
         probs = []
@@ -625,9 +584,7 @@ def batch_fn_for(device):
 
 def replay_script(script, ne: int, A, B) -> np.ndarray:
     """Merged column matrix of one job from its edit script, newest op
-    first (``ne`` ops): ``mzcore.replay_into``, else ``yama._replay``."""
-    if Y._mzcore is None:
-        return Y._replay(np.asarray(script[:ne])[::-1].copy(), A, B)
+    first (``ne`` ops): ``mzcore.replay_into``."""
     M, K = A.shape
     N, L = B.shape
     merged = np.empty((ne, K + L), dtype=np.uint8)

@@ -17,24 +17,17 @@ glibc/x86-64, observed by differential testing against the built reference):
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 
 from . import scores as sc
-from .blocks import make_part_ali_col, nd_col, nondash_before
-from .maf import Ali, Comp, DASH, pos2col
+from .blocks import make_part_ali_col, nd_col
+from .maf import Ali, DASH, pos2col
+from .native import load
 from .yama import yama_numpy
 
-try:  # native plan and fold (see native/mzcore.cpp)
-    from .native import load as _load_native
-
-    _mzcore = _load_native()
-except Exception:
-    _mzcore = None
-_plan1 = getattr(_mzcore, "preyama_plan1", None) if _mzcore else None
-_fold = getattr(_mzcore, "preyama_fold", None) if _mzcore else None
-_smooth_nat = getattr(_mzcore, "smooth_into", None) if _mzcore else None
+_mzcore = load()  # the native host runtime (native/mzcore.cpp)
 
 DPFn = Callable[..., np.ndarray]
 _U8 = np.dtype(np.uint8)
@@ -43,27 +36,11 @@ _I64 = np.dtype(np.int64)
 
 def smooth(LB: np.ndarray, RB: np.ndarray, M: int, N: int, radius: int):
     """Monotonize band bounds, then dilate into a radius-R sausage
-    (mz_preyama.c:17-35). Vectorized; returns new arrays."""
-    if _smooth_nat is not None:
-        L2 = LB[: M + 1].astype(np.int64, copy=True)
-        R2 = RB[: M + 1].astype(np.int64, copy=True)
-        _smooth_nat(L2, R2, M, N, radius)
-        return L2, R2
-    LB = np.maximum.accumulate(LB[: M + 1].astype(np.int64))
-    RB = np.minimum.accumulate(
-        np.minimum(RB[: M + 1].astype(np.int64), N)[::-1]
-    )[::-1]
-    radi = min(M, radius)
-    L2 = LB.copy()
-    if M > radi:
-        idx = np.arange(radi + 1, M + 1)
-        L2[idx] = np.minimum(np.maximum(LB[idx] - radi, 0), LB[idx - radi])
-    L2[: radi + 1] = 0
-    R2 = RB.copy()
-    if M > radi:
-        idx = np.arange(0, M - radi)
-        R2[idx] = np.maximum(np.minimum(RB[idx] + radi, N), RB[idx + radi])
-    R2[max(M - radi, 0) :] = N
+    (mz_preyama.c:17-35), natively (``mzcore.smooth_into``); returns new
+    int64 arrays."""
+    L2 = LB[: M + 1].astype(np.int64, copy=True)
+    R2 = RB[: M + 1].astype(np.int64, copy=True)
+    _mzcore.smooth_into(L2, R2, M, N, radius)
     return L2, R2
 
 
@@ -128,53 +105,16 @@ def maf_build(
 
     Template rows: all of a2's comps, then a3's comps (skipping a3's first
     when top == 0). One native pass (``preyama_fold``: the transpose, the
-    rows' sizes and starts, their Comps and the score) where the runtime
-    is built, else :func:`_maf_build_numpy`. ``befores``: each template
-    row's #non-dash before its cut, int64, where the plan counted them
-    (``preyama_plan1``)."""
-    if _fold is not None:
-        if sp is None:
-            sp = sc.current
-        r = _fold(A_new, np.empty(A_new.shape[::-1], _U8),
-                  a2.comps, cbeg2, a3.comps, 1 if top == 0 else 0, cbeg3,
-                  sp.ss, sp.gop, befores)
-        if r is not None:
-            comps, score = r
-            return Ali(comps, score) if comps else None
-    return _maf_build_numpy(A_new, a2, cbeg2, a3, cbeg3, top, sp)
-
-
-def _maf_build_numpy(A_new, a2, cbeg2, a3, cbeg3, top, sp) -> Optional[Ali]:
-    """:func:`maf_build` in numpy: its fallback, and the tests' reference."""
-    ncol, nrow = A_new.shape
-    templates: List[Tuple[Comp, int]] = [(c, cbeg2) for c in a2.comps]
-    extra = a3.comps[1:] if top == 0 else a3.comps
-    templates += [(c, cbeg3) for c in extra]
-    out = Ali()
-    # one contiguous transpose + one vectorized size pass instead of a
-    # strided column copy + count per row
-    AT = np.ascontiguousarray(A_new.T)  # (nrow, ncol)
-    sizes = (AT != DASH).sum(axis=1)
-    kept = 0
-    for i in range(nrow):
-        size = int(sizes[i])
-        if size == 0:
-            continue
-        d, beg = templates[i]
-        nc = d.copy(text=AT[i])
-        nc.start = d.start + nondash_before(d, beg)
-        nc.size = size
-        out.comps.append(nc)
-        kept += 1
-    if not out.comps:
-        return None
-    # score straight off the transpose (no re-stack); drop all-dash rows
-    # first iff any were skipped (they contribute 0 to SS but the gap
-    # term would see spurious dash pairs -- the C scores the rebuilt
-    # block, which has them removed)
-    T = AT if kept == nrow else np.ascontiguousarray(AT[sizes > 0])
-    out.score = sc.score_matrix(T, 0, ncol, sp=sp)
-    return out
+    rows' sizes and starts, their Comps and the score). ``befores``: each
+    template row's #non-dash before its cut, int64, where the plan
+    counted them (``preyama_plan1``)."""
+    if sp is None:
+        sp = sc.current
+    A_new = np.ascontiguousarray(A_new)
+    comps, score = _mzcore.preyama_fold(
+        A_new, np.empty(A_new.shape[::-1], _U8), a2.comps, cbeg2, a3.comps,
+        1 if top == 0 else 0, cbeg3, sp.ss, sp.gop, befores)
+    return Ali(comps, score) if comps else None
 
 
 def pre_yama(
@@ -187,14 +127,12 @@ def pre_yama(
     unused2_sink=None,
     sp: sc.ScoreParams | None = None,
     dp_fn: DPFn = yama_numpy,
-    tally: Optional[list] = None,
 ) -> Optional[Ali]:
     """pre_yama (mz_preyama.c:152-359): drive :func:`pre_yama_gen` with a
     synchronous per-problem DP function."""
     gen = pre_yama_gen(
         a1, a2, beg, end, radius, v, unused2_sink=unused2_sink, sp=sp,
         snapshot=False,  # driven to completion before the scan resumes
-        tally=tally,
     )
     try:
         job = next(gen)
@@ -214,7 +152,6 @@ def pre_yama_gen(
     unused2_sink=None,
     sp: sc.ScoreParams | None = None,
     snapshot: bool = False,
-    tally: Optional[list] = None,
 ):
     """Coroutine form of pre_yama: yields (A, B, LB, RB) DP jobs and
     receives merged column matrices back via ``send``; returns the final
@@ -231,9 +168,8 @@ def pre_yama_gen(
     (K == 0, mz_preyama.c:193-200).
 
     A v == 1 job is planned in one native pass (``preyama_plan1``: the
-    column lookups, A, B without its all-dash columns, the band) where
-    the runtime is built, else by the numpy code below, which is also the
-    v == 0 plan; ``tally[native] += 1``."""
+    column lookups, A, B without its all-dash columns, the band); the
+    numpy code below is the v == 0 plan."""
     # When driven deferred, the merge scan resumes this coroutine after
     # it has moved past a1/a2 — safe without copies because keep_ali is
     # non-mutating (returns a fresh Ali) and Comp text buffers are
@@ -246,24 +182,20 @@ def pre_yama_gen(
         a2 = Ali(
             comps=[c.copy(text=c.text) for c in a2.comps], score=a2.score
         )
-    if v == 1 and _plan1 is not None:
-        job = _plan1(a1.comps, a2.comps, beg, end, radius)
-        if job is not None:
-            if tally is not None:
-                tally[1] += 1
-            if not job:  # B keeps no column
-                return None
-            a, b, lb, rb, M, K, N, L, cbeg1, cbeg2, befores = job
-            AL_new = yield (
-                np.ndarray((M, K), _U8, a), np.ndarray((N, L), _U8, b),
-                np.ndarray(M + 1, _I64, lb), np.ndarray(M + 1, _I64, rb),
-            )
-            return maf_build(AL_new, a1, cbeg1, a2, cbeg2, 0, sp=sp,
-                             befores=befores)
-    if tally is not None:
-        tally[0] += 1
+    if v == 1:
+        job = _mzcore.preyama_plan1(a1.comps, a2.comps, beg, end, radius)
+        if not job:  # B keeps no column
+            return None
+        a, b, lb, rb, M, K, N, L, cbeg1, cbeg2, befores = job
+        AL_new = yield (
+            np.ndarray((M, K), _U8, a), np.ndarray((N, L), _U8, b),
+            np.ndarray(M + 1, _I64, lb), np.ndarray(M + 1, _I64, rb),
+        )
+        return maf_build(AL_new, a1, cbeg1, a2, cbeg2, 0, sp=sp,
+                         befores=befores)
 
-    K = len(a1.comps)
+    # ---- v == 0 ----
+    K = len(a1.comps) - 1
     L = len(a2.comps) - 1
 
     top1, top2 = a1.comps[0], a2.comps[0]
@@ -290,27 +222,20 @@ def pre_yama_gen(
     if N < 1:
         return None
 
-    if v == 0:
-        K -= 1
     if K == 0:
         if unused2_sink is not None:
             part = make_part_ali_col(a2, cbeg2, cend2, sp=sp)
             unused2_sink(part)
         return None
 
-    rows1 = a1.comps[1:] if v == 0 else a1.comps
     A_full = np.stack(
-        [c.text[cbeg1 : cend1 + 1] for c in rows1], axis=1
+        [c.text[cbeg1 : cend1 + 1] for c in a1.comps[1:]], axis=1
     )  # (M, K)
     M_cp = M
-    if v == 0:
-        A, map1 = rm_col_dash(A_full)
-        M = A.shape[0]
-        if M < 1:
-            return None
-    else:
-        A = A_full
-        map1 = np.arange(M + 1, dtype=np.int64)
+    A, map1 = rm_col_dash(A_full)
+    M = A.shape[0]
+    if M < 1:
+        return None
 
     # band from the lockstep walk of the two reference rows
     # (mz_preyama.c:240-258): the t-th non-dash of top1's slice pairs with
@@ -330,10 +255,7 @@ def pre_yama_gen(
     AL_new = yield (A, B, LB, RB)
     M_new = AL_new.shape[0]
 
-    if v == 1:
-        return maf_build(AL_new, a1, cbeg1, a2, cbeg2, 0, sp=sp)
-
-    # ---- v == 0: second DP of the bare reference vs the merged block ----
+    # second DP of the bare reference vs the merged block
     A2 = top1.text[cbeg1 : cend1 + 1].reshape(-1, 1)  # (M_cp, 1)
     A2r, map3 = rm_col_dash(A2)
     M3 = A2r.shape[0]

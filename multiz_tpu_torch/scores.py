@@ -14,13 +14,9 @@ from dataclasses import dataclass
 
 import numpy as np
 
-try:  # native sum-of-pairs scorer (see native/mzcore.cpp score_range)
-    from .native import load as _load_native
+from .native import load
 
-    _nat = _load_native()
-    _mzcore_score = getattr(_nat, "score_range", None) if _nat else None
-except Exception:
-    _mzcore_score = None
+_mzcore = load()  # the native host runtime (native/mzcore.cpp)
 
 DASH = ord("-")
 
@@ -67,16 +63,6 @@ class ScoreParams:
     ss_cat: np.ndarray  # (6, 6) int32 category-level substitution scores
     gap_open: int
     gap_extend: int
-
-    def gap2(self, a: np.ndarray, b: np.ndarray, c: np.ndarray, d: np.ndarray):
-        """Vectorized GAP2 macro (mz_scores.h:15): dash-pattern lookup."""
-        idx = (
-            ((a == DASH).astype(np.int32) << 3)
-            | ((b == DASH).astype(np.int32) << 2)
-            | ((c == DASH).astype(np.int32) << 1)
-            | (d == DASH).astype(np.int32)
-        )
-        return self.gop[idx]
 
 
 def _build(sub4: np.ndarray, filler: int, gap_op: int, gap_ex: int) -> ScoreParams:
@@ -155,51 +141,11 @@ def score_range_texts(
         raise ValueError(
             f"score_range: start={start}, size={size}, textSize={text_size}"
         )
-    if _mzcore_score is not None and n >= 2:
-        T = np.stack(rows, axis=0)  # np.stack output is C-contiguous
-        return float(
-            _mzcore_score(T, n, text_size, start, size, sp.ss, sp.gop)
-        )
-    lo = max(start, 1)  # gap terms exist only for absolute column i > 0
-    hi = start + size
-    total = np.int64(0)
-    for i in range(n):
-        ti = rows[i]
-        for j in range(i + 1, n):
-            tj = rows[j]
-            total += sp.ss[ti[start:hi], tj[start:hi]].sum(dtype=np.int64)
-            if lo < hi:
-                total -= sp.gap2(
-                    ti[lo - 1 : hi - 1],
-                    tj[lo - 1 : hi - 1],
-                    ti[lo:hi],
-                    tj[lo:hi],
-                ).sum(dtype=np.int64)
-    return float(total)
-
-
-def score_matrix(
-    T: np.ndarray, start: int, size: int, sp: ScoreParams | None = None
-) -> float:
-    """score_range_texts on an already-stacked (n, W) uint8 row matrix
-    (skips the per-call np.stack when the caller holds one, e.g.
-    preyama.maf_build's merged transpose)."""
-    if sp is None:
-        sp = current
-    n, W = T.shape
     if n < 2:
         return 0.0
-    if start < 0 or size <= 0 or start + size > W:
-        raise ValueError(
-            f"score_range: start={start}, size={size}, textSize={W}"
-        )
-    if _mzcore_score is not None:
-        return float(
-            _mzcore_score(
-                np.ascontiguousarray(T), n, W, start, size, sp.ss, sp.gop
-            )
-        )
-    return score_range_texts(list(T), start, size, sp=sp)
+    T = np.stack(rows, axis=0)  # np.stack output is C-contiguous
+    return float(_mzcore.score_range(T, n, text_size, start, size, sp.ss,
+                                     sp.gop))
 
 
 def score_range(ali, start: int, size: int, sp: ScoreParams | None = None) -> float:

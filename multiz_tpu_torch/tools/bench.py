@@ -67,7 +67,7 @@ def bench_bucket(n: int = 1024):
     buckets: dict = {}
     for A, B, LB, RB in bench_jobs(n):
         M, N = A.shape[0], B.shape[0]
-        cw = P.pick_cw(np.asarray(LB), np.asarray(RB), M, N)
+        cw = P.route_band(np.asarray(LB), np.asarray(RB), M, N)[0]
         key = (max(P._pad_to(M), P._pad_to(N)), P._pad8(A.shape[1]),
                P._pad8(B.shape[1]), cw)
         buckets.setdefault(key, []).append((A, B, LB, RB))
@@ -84,8 +84,6 @@ def native_1core(jobs, iters: int = ITERS) -> tuple:
     from .. import scores as sc
     from .. import yama as Y
 
-    if Y._mzcore is None:
-        raise RuntimeError("the port's native host runtime is not built")
     sp = sc.current
     go, ge = int(sp.gap_open), int(sp.gap_extend)
     best = None

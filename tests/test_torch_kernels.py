@@ -50,7 +50,7 @@ def _bucket():
         LB, RB = diag_band(M, N, 8 if i % 2 else 30)
         K, L = (int(x) for x in rng.integers(1, 5, size=2))
         jobs.append((synth_block(rng, M, K), synth_block(rng, N, L), LB, RB))
-    cws = {YP.pick_cw(LB, RB, A.shape[0], B.shape[0])
+    cws = {P.route_band(LB, RB, A.shape[0], B.shape[0])[0]
            for A, B, LB, RB in jobs}
     assert len(cws) == 1
     return jobs, cws.pop()

@@ -1,37 +1,37 @@
 """pre_yama's native plan and fold (``native/mzcore.cpp``
-``preyama_plan1``, ``preyama_fold``) held to their numpy versions in
-``multiz_tpu_torch/preyama.py`` (the module's ``_plan1`` / ``_fold`` set
-to None): the v == 1 job field for field on random blocks, the fold's
-Comps and score bit for bit, a tba's MAF byte for byte against a process
-with ``MULTIZ_TPU_NO_NATIVE=1``, and the scan's counters
-``preyama.native`` / ``preyama.numpy``."""
+``preyama_plan1``, ``preyama_fold``) held to the JAX package's numpy
+pre_yama (``multiz_tpu/preyama.py`` with its native handles set to
+None): the v == 1 job field for field on random blocks, the fold's
+Comps and score bit for bit, a strided text and a Fortran-ordered
+matrix on the same native path, a tba's MAF byte for byte against the
+JAX package's and the scan's counters ``preyama.plan`` /
+``preyama.fold``; and a failed build of the runtime, which raises with
+the compiler's message.
 
-import json
-import os
+Only numpy arrays, strings and files cross between the packages: each
+block is built in both from the same seed."""
+
 import struct
 import subprocess
-import sys
 
 import numpy as np
 import pytest
 
-from multiz_tpu_torch import maf, preyama, scores, trace
+from multiz_tpu import maf as jmaf
+from multiz_tpu import preyama as jpreyama
+from multiz_tpu import scores as jscores
+from multiz_tpu_torch import maf, native, preyama, scores, trace
 from multiz_tpu_torch.multiz import MultizConfig
 from multiz_tpu_torch.ops import yama_pack as P
 from multiz_tpu_torch.tree import tba_run
 
+from .test_torch_blockcut import REFS, jax_reference, jax_tba_maf
 from .test_torch_trace import DATA, PAIRS, TREE
 
 SP = scores.init_scores70()
+JSP = jscores.init_scores70()
 BASES = np.frombuffer(b"ACGTacgtN", dtype=np.uint8)
 N_PAIRS = 150
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-@pytest.fixture(autouse=True)
-def _native_built():
-    assert preyama._plan1 is not None and preyama._fold is not None, \
-        "the native runtime did not build"
 
 
 @pytest.fixture(autouse=True)
@@ -56,10 +56,11 @@ def _row(rng, W: int, dash: float) -> np.ndarray:
 
 
 def _ali(rng, nrow: int, W: int, start: int, all_dash_cols: bool,
-         ends: bool, src0: str) -> maf.Ali:
+         ends: bool, src0: str, M=maf):
     """A block of nrow rows over W columns whose top row (``src0``)
     starts at ``start``; some columns all dash below the top row; with
-    ``ends``, the top row holds a base in its first and last column."""
+    ``ends``, the top row holds a base in its first and last column. An
+    Ali of the package whose maf module is ``M``."""
     T = np.stack([_row(rng, W, rng.uniform(0.1, 0.7)) for _ in range(nrow)])
     if all_dash_cols and nrow > 1:
         T[1:, rng.random(W) < 0.2] = maf.DASH
@@ -67,20 +68,20 @@ def _ali(rng, nrow: int, W: int, start: int, all_dash_cols: bool,
         T[0, 0] = T[0, -1] = ord("A")
     if not (T[0] != maf.DASH).any():
         T[0, rng.integers(0, W)] = ord("C")
-    out = maf.Ali(score=0.0)
+    out = M.Ali(score=0.0)
     for r in range(nrow):
         text = T[r].copy()
         size = int(np.count_nonzero(text != maf.DASH))
         s = start if r == 0 else int(rng.integers(0, 10_000))
         src = src0 if r == 0 else f"sp{r}.chr{int(rng.integers(1, 3))}"
-        out.comps.append(maf.Comp(src, s, size,
-                                  "+" if r == 0 or rng.random() < .5 else "-",
-                                  s + size + 10_000, text,
-                                  paralog="s" if rng.random() < .8 else "a"))
+        out.comps.append(M.Comp(src, s, size,
+                                "+" if r == 0 or rng.random() < .5 else "-",
+                                s + size + 10_000, text,
+                                paralog="s" if rng.random() < .8 else "a"))
     return out
 
 
-def _pair(seed: int):
+def _pair(seed: int, M=maf):
     """(a1, a2, beg, end): two blocks whose top rows overlap on the
     reference; 1-8 rows a side; beg/end at random or on the overlap's
     first and last base, which can be a block's first and last column."""
@@ -89,11 +90,11 @@ def _pair(seed: int):
     L1 = int(rng.integers(1, 9))  # a2's rows, its top row included
     ends = rng.random() < 0.3
     a1 = _ali(rng, K, int(rng.integers(1, 300)), 1000, False, ends,
-              "human.chr1")
+              "human.chr1", M)
     s1, e1 = a1.comps[0].start, a1.comps[0].end
     s2 = int(rng.integers(max(0, s1 - 200), e1))
     a2 = _ali(rng, L1, int(rng.integers(1, 300)), s2, rng.random() < 0.5,
-              ends, "human.chr1")
+              ends, "human.chr1", M)
     if rng.random() < 0.1 and L1 > 1:  # every row of B all dash: N' = 0
         for c in a2.comps[1:]:
             c.text = np.full_like(c.text, maf.DASH)
@@ -129,8 +130,7 @@ def _comps_fields(a):
 
 
 def _job_fields(job):
-    return [(x.dtype, x.shape, x.flags.c_contiguous, x.flags.writeable,
-             x.tobytes()) for x in job]
+    return [(x.dtype, x.shape, x.tobytes()) for x in job]
 
 
 def _merge(A: np.ndarray, B: np.ndarray, rng) -> np.ndarray:
@@ -159,15 +159,18 @@ def _merge(A: np.ndarray, B: np.ndarray, rng) -> np.ndarray:
     return np.ascontiguousarray(np.stack(out))
 
 
-def _drive(a1, a2, beg, end, radius, rng, tally):
-    """pre_yama_gen at v == 1: its job, and the Ali folded from a merged
-    matrix drawn from ``rng``."""
-    gen = preyama.pre_yama_gen(a1, a2, beg, end, radius, 1, sp=SP,
-                               tally=tally)
+def _drive(a1, a2, beg, end, radius, rng, pkg=preyama):
+    """pre_yama_gen of ``pkg`` (the port's or the JAX package's
+    preyama) at v == 1: its job, and the Ali folded from a merged matrix
+    drawn from ``rng``."""
+    gen = pkg.pre_yama_gen(a1, a2, beg, end, radius, 1,
+                           sp=SP if pkg is preyama else JSP)
     try:
         job = next(gen)
     except StopIteration as e:
         return None, e.value
+    if pkg is preyama:  # the stream packs the arrays as they are
+        assert all(x.flags.c_contiguous and x.flags.writeable for x in job)
     try:
         gen.send(_merge(job[0], job[1], rng))
     except StopIteration as e:
@@ -175,33 +178,31 @@ def _drive(a1, a2, beg, end, radius, rng, tally):
     raise AssertionError("a v == 1 job yields once")
 
 
+def _jdrive(seed, radius, a1, a2, beg, end):
+    """_drive on the JAX package's copy of the same blocks."""
+    return _drive(a1, a2, beg, end, radius, np.random.default_rng(seed),
+                  pkg=jpreyama)
+
+
 @pytest.mark.parametrize("radius", [0, 30])
 def test_plan_matches_numpy(radius, monkeypatch):
+    jax_reference(monkeypatch, "jax-numpy")
     n = {"jobs": 0, "empty": 0, "vanished": 0, "ends": 0}
     for seed in range(N_PAIRS):
         case = _pair(seed)
         if case is None:
             continue
         a1, a2, beg, end = case
-        tally = [0, 0]
         job, got = _drive(a1, a2, beg, end, radius,
-                          np.random.default_rng(seed), tally)
-        assert tally == [0, 1]
-        with monkeypatch.context() as m:
-            m.setattr(preyama, "_plan1", None)
-            m.setattr(preyama, "_fold", None)
-            tally = [0, 0]
-            case = _pair(seed)
-            job_np, want = _drive(*case, radius,
-                                  np.random.default_rng(seed), tally)
-            assert tally == [1, 0]
-        assert (job is None) == (job_np is None), seed
+                          np.random.default_rng(seed))
+        job_j, want = _jdrive(seed, radius, *_pair(seed, jmaf))
+        assert (job is None) == (job_j is None), seed
         if job is None:
             n["empty"] += 1
             assert got is None and want is None
             continue
         n["jobs"] += 1
-        assert _job_fields(job) == _job_fields(job_np), seed
+        assert _job_fields(job) == _job_fields(job_j), seed
         assert len(job[2]) == job[0].shape[0] + 1
         assert _comps_fields(got) == _comps_fields(want), seed
         if want is not None:
@@ -211,54 +212,62 @@ def test_plan_matches_numpy(radius, monkeypatch):
     assert n["jobs"] > 60 and n["empty"] > 5 and n["ends"] > 5, n
 
 
-def test_plan_of_a_long_job_releases_the_gil_and_matches_numpy(monkeypatch):
+def _long_pair(M):
+    rng = np.random.default_rng(11)
+    a1 = _ali(rng, 8, 120_000, 1000, False, True, "human.chr1", M)
+    a2 = _ali(rng, 8, 120_000, 1000, True, True, "human.chr1", M)
+    end = min(a1.comps[0].end, a2.comps[0].end) - 1
+    return a1, a2, 1000, end
+
+
+def test_plan_of_a_long_job_releases_the_gil_and_matches_numpy(
+        monkeypatch):
     """120,000 columns x 8 rows a side, past the size above which the
     plan runs without the GIL."""
-    rng = np.random.default_rng(11)
-    a1 = _ali(rng, 8, 120_000, 1000, False, True, "human.chr1")
-    a2 = _ali(rng, 8, 120_000, 1000, True, True, "human.chr1")
-    end = min(a1.comps[0].end, a2.comps[0].end) - 1
-    job, got = _drive(a1, a2, 1000, end, 30, np.random.default_rng(1), None)
-    with monkeypatch.context() as m:
-        m.setattr(preyama, "_plan1", None)
-        m.setattr(preyama, "_fold", None)
-        job_np, want = _drive(a1, a2, 1000, end, 30,
-                              np.random.default_rng(1), None)
+    jax_reference(monkeypatch, "jax-numpy")
+    job, got = _drive(*_long_pair(maf), 30, np.random.default_rng(1))
+    job_j, want = _jdrive(1, 30, *_long_pair(jmaf))
     assert job[0].size > 500_000  # M x K alone
-    assert _job_fields(job) == _job_fields(job_np)
+    assert _job_fields(job) == _job_fields(job_j)
     assert _comps_fields(got) == _comps_fields(want)
 
 
-def test_plan_falls_back_where_a_text_is_not_contiguous(monkeypatch):
-    case = None
-    seed = 0
-    while case is None or len(case[1].comps) < 2:
-        seed += 1
-        case = _pair(seed)
-    a1, a2, beg, end = case
-    wide = np.repeat(a2.comps[1].text, 2)
-    a2.comps[1].text = wide[::2]  # equal bytes, strided
-    assert preyama._plan1(a1.comps, a2.comps, beg, end, 30) is None
-    tally = [0, 0]
-    job, got = _drive(a1, a2, beg, end, 30, np.random.default_rng(seed),
-                      tally)
-    assert tally == [1, 0]
-    monkeypatch.setattr(preyama, "_plan1", None)
-    monkeypatch.setattr(preyama, "_fold", None)
-    job_np, want = _drive(a1, a2, beg, end, 30, np.random.default_rng(seed),
-                          None)
-    assert _comps_fields(got) == _comps_fields(want)
+def _strided(a):
+    """a's second row's text replaced by a strided view of equal bytes."""
+    wide = np.repeat(a.comps[1].text, 2)
+    a.comps[1].text = wide[::2]
+    assert not a.comps[1].text.flags.c_contiguous
+    return a
 
 
-def _fold_case(seed: int, top: int):
+@pytest.mark.parametrize("ref", REFS)
+def test_plan_of_a_strided_text_matches_the_jax_package(ref, monkeypatch):
+    """A text that is a strided view takes the native plan (read through
+    its strides) and gives the JAX package's job and block."""
+    jax_reference(monkeypatch, ref)
+    seeds = [s for s in range(1, 200)
+             if (c := _pair(s)) is not None and len(c[1].comps) >= 2]
+    for seed in seeds[:20]:
+        a1, a2, beg, end = _pair(seed)
+        job, got = _drive(a1, _strided(a2), beg, end, 30,
+                          np.random.default_rng(seed))
+        ja1, ja2, _, _ = _pair(seed, jmaf)
+        job_j, want = _jdrive(seed, 30, ja1, _strided(ja2), beg, end)
+        assert (job is None) == (job_j is None), seed
+        if job is not None:
+            assert _job_fields(job) == _job_fields(job_j), seed
+        assert _comps_fields(got) == _comps_fields(want), seed
+
+
+def _fold_case(seed: int, top: int, M=maf):
     """(A_new, a2, cbeg2, a3, cbeg3): templates of 1-8 rows a side, a
     merged matrix whose rows vanish at random, cuts anywhere in the
     templates, position maps on some of them."""
     rng = np.random.default_rng(seed)
     a2 = _ali(rng, int(rng.integers(1, 9)), int(rng.integers(1, 200)), 500,
-              False, False, "human.chr1")
+              False, False, "human.chr1", M)
     a3 = _ali(rng, int(rng.integers(1 if top else 2, 9)),
-              int(rng.integers(1, 200)), 700, False, False, "human.chr1")
+              int(rng.integers(1, 200)), 700, False, False, "human.chr1", M)
     nrow = len(a2.comps) + len(a3.comps) - (1 - top)
     ncol = int(rng.integers(1, 300))
     A_new = np.stack([_row(rng, ncol, rng.uniform(0.1, 0.8))
@@ -274,14 +283,21 @@ def _fold_case(seed: int, top: int):
     return np.ascontiguousarray(A_new), a2, cbeg2, a3, cbeg3
 
 
+def _jfold(seed: int, top: int) -> tuple:
+    """The JAX package's maf_build of _fold_case(seed, top)."""
+    A_new, a2, cbeg2, a3, cbeg3 = _fold_case(seed, top, jmaf)
+    return A_new, jpreyama.maf_build(A_new, a2, cbeg2, a3, cbeg3, top,
+                                     sp=JSP)
+
+
 @pytest.mark.parametrize("top", [0, 1])
-def test_fold_matches_maf_build_numpy(top):
+def test_fold_matches_the_jax_package(top, monkeypatch):
+    jax_reference(monkeypatch, "jax-numpy")
     n = {"none": 0, "vanished": 0, "one": 0}
     for seed in range(2 * N_PAIRS):
         A_new, a2, cbeg2, a3, cbeg3 = _fold_case(seed, top)
         got = preyama.maf_build(A_new, a2, cbeg2, a3, cbeg3, top, sp=SP)
-        want = preyama._maf_build_numpy(A_new, a2, cbeg2, a3, cbeg3, top,
-                                        SP)
+        want = _jfold(seed, top)[1]
         assert _comps_fields(got) == _comps_fields(want), seed
         if want is None:
             n["none"] += 1
@@ -295,76 +311,61 @@ def test_fold_matches_maf_build_numpy(top):
     assert n["vanished"] > 100 and n["none"] > 0 and n["one"] > 0, n
 
 
-def test_fold_falls_back_on_a_fortran_matrix():
-    A_new, a2, cbeg2, a3, cbeg3 = _fold_case(3, 0)
-    F = np.asfortranarray(A_new)
-    assert preyama._fold(F, np.empty(F.shape[::-1], np.uint8), a2.comps,
-                         cbeg2, a3.comps, 1, cbeg3, SP.ss, SP.gop) is None
-    assert _comps_fields(preyama.maf_build(F, a2, cbeg2, a3, cbeg3, 0,
-                                           sp=SP)) == \
-        _comps_fields(preyama._maf_build_numpy(A_new, a2, cbeg2, a3, cbeg3,
-                                               0, SP))
+@pytest.mark.parametrize("ref", REFS)
+def test_fold_of_a_fortran_matrix_matches_the_jax_package(ref, monkeypatch):
+    """A merged matrix in Fortran order takes the native fold (copied to
+    C order first) and gives the JAX package's block."""
+    jax_reference(monkeypatch, ref)
+    for seed in range(3, 13):
+        A_new, a2, cbeg2, a3, cbeg3 = _fold_case(seed, 0)
+        F = np.asfortranarray(A_new)
+        assert not F.flags.c_contiguous or F.shape[1] == 1
+        got = preyama.maf_build(F, a2, cbeg2, a3, cbeg3, 0, sp=SP)
+        assert _comps_fields(got) == _comps_fields(_jfold(seed, 0)[1]), seed
 
 
-_NO_NATIVE_TBA = """
-import json, sys
-from multiz_tpu_torch import maf, preyama, scores, trace
-from multiz_tpu_torch.multiz import MultizConfig
-from multiz_tpu_torch.ops import yama_pack as P
-from multiz_tpu_torch.tree import tba_run
-assert preyama._mzcore is None and preyama._plan1 is None
-out = tba_run({tree!r}, {pairs!r}, src_dir={data!r},
-              cfg=MultizConfig(batch_fn=P.batch_fn_for("cpu")),
-              sp=scores.init_scores70())
-c = trace.counters()
-with open(sys.argv[1], "w") as f:
-    json.dump({{"maf": "".join(maf.format_ali(a) for a in out),
-               "counts": {{k: c[k].count for k in c}}}}, f)
-"""
+@pytest.mark.parametrize("how", ["compile-error", "no-compiler"])
+def test_a_failed_build_raises_with_the_compilers_message(
+        how, monkeypatch, tmp_path):
+    """``native.load()`` never returns None: a compile that fails (faked
+    here in-process, into a library path of this test's own; the load
+    uncached, ``load.__wrapped__``) raises RuntimeError with g++'s
+    message, or with the error of a missing compiler. The shared library
+    under ``_build/`` is not touched."""
 
+    def run(cmd, **kw):
+        assert cmd[0] == "g++" and cmd[-1].startswith(str(tmp_path))
+        if how == "no-compiler":
+            raise FileNotFoundError(2, "No such file or directory", "g++")
+        return subprocess.CompletedProcess(
+            cmd, 1, b"", b"mzcore.cpp:1:1: error: a faked compile error\n")
 
-@pytest.fixture(scope="module")
-def no_native_tba(tmp_path_factory):
-    """The golden five species' tba (8 kb) in a process with
-    ``MULTIZ_TPU_NO_NATIVE=1`` and ``MZ_TIME`` set: its MAF and
-    counters."""
-    out = tmp_path_factory.mktemp("no_native") / "tba.json"
-    env = dict(os.environ, MULTIZ_TPU_NO_NATIVE="1", MZ_TIME="1",
-               PYTHONPATH=ROOT)
-    code = _NO_NATIVE_TBA.format(tree=TREE, pairs=PAIRS, data=DATA)
-    subprocess.run([sys.executable, "-c", code, str(out)], env=env, cwd=ROOT,
-                   check=True, timeout=600, capture_output=True)
-    return json.loads(out.read_text())
-
-
-def test_no_native_process_plans_every_job_in_numpy(no_native_tba):
-    c = no_native_tba["counts"]
-    assert c["preyama.numpy"] == c["preyama.plan"] > 100
-    assert c["preyama.native"] == 0
+    monkeypatch.setattr(native, "_so_path",
+                        lambda: str(tmp_path / "_mzcore.so"))
+    monkeypatch.setattr(native.subprocess, "run", run)
+    want = ("a faked compile error" if how == "compile-error"
+            else "No such file or directory")
+    with pytest.raises(RuntimeError, match=want):
+        native.load.__wrapped__()
+    assert list(tmp_path.iterdir()) == []
 
 
 @pytest.mark.parametrize("mz_time", [False, True], ids=["off", "on"])
-@pytest.mark.parametrize("plan", ["native", "numpy"])
-def test_tba_maf_and_plan_counters(plan, mz_time, no_native_tba,
-                                   monkeypatch):
-    """The tba's MAF equals the no-native process's byte for byte, with
-    pre_yama native (every job counted under ``preyama.native``) or its
-    numpy plan and fold in this process."""
-    if plan == "numpy":
-        monkeypatch.setattr(preyama, "_plan1", None)
-        monkeypatch.setattr(preyama, "_fold", None)
+@pytest.mark.parametrize("ref", REFS)
+def test_tba_maf_and_plan_counters(ref, mz_time, monkeypatch):
+    """The tba's MAF equals the JAX package's byte for byte, on its
+    native runtime or its numpy code; with ``MZ_TIME`` set every job's
+    plan and fold are counted (``preyama.plan``, ``preyama.fold``)."""
+    want = jax_tba_maf(ref)
     if mz_time:
         monkeypatch.setenv("MZ_TIME", "1")
     cfg = MultizConfig(batch_fn=P.batch_fn_for("cpu"))
     out = tba_run(TREE, PAIRS, src_dir=DATA, cfg=cfg, sp=SP)
-    assert "".join(maf.format_ali(a) for a in out) == no_native_tba["maf"]
+    assert "".join(maf.format_ali(a) for a in out) == want
     c = trace.counters()
     if not mz_time:
         assert c == {} and trace.spans() == []
         return
-    jobs = c["preyama.plan"].count
-    assert jobs == no_native_tba["counts"]["preyama.plan"]
-    native, numpy_ = c["preyama.native"], c["preyama.numpy"]
-    assert (native.count, numpy_.count) == (
-        (jobs, 0) if plan == "native" else (0, jobs))
-    assert native.seconds == numpy_.seconds == 0.0
+    plan, fold = c["preyama.plan"], c["preyama.fold"]
+    assert plan.count > 100 and 0 < fold.count <= plan.count
+    assert plan.seconds > 0 and fold.seconds > 0

@@ -78,7 +78,6 @@ def test_the_import_scan_sees_what_it_refuses(tmp_path):
 
 def test_native_runtime_is_the_ports_own():
     mz = TY._mzcore
-    assert mz is not None, "the port's native host runtime did not build"
     assert mz.__name__ == "multiz_tpu_torch._mzcore"
     assert os.path.dirname(mz.__file__) == os.path.join(
         ROOT, "multiz_tpu_torch", "_build")
@@ -86,13 +85,12 @@ def test_native_runtime_is_the_ports_own():
         assert mz is not JY._mzcore and mz.__file__ != JY._mzcore.__file__
 
 
-@pytest.mark.parametrize("native", [True, False], ids=["native", "numpy"])
-def test_yama_numpy_matches_the_jax_package(native, monkeypatch):
-    """The port's oracle against the JAX package's, on both the native
-    and the pure-numpy path, over jobs from one numpy seed."""
-    if not native:
+@pytest.mark.parametrize("ref", ["jax-native", "jax-numpy"])
+def test_yama_numpy_matches_the_jax_package(ref, monkeypatch):
+    """The port's exact DP (its native runtime) against the JAX
+    package's, native or pure numpy, over jobs from one numpy seed."""
+    if ref == "jax-numpy":
         monkeypatch.setattr(JY, "_mzcore", None)
-        monkeypatch.setattr(TY, "_mzcore", None)
     jobs = jsynth(12, m_lo=16, m_hi=120, k_lo=1, k_hi=5, radius=12, seed=17)
     tjobs = tsynth(12, m_lo=16, m_hi=120, k_lo=1, k_hi=5, radius=12,
                    seed=17)
@@ -101,6 +99,29 @@ def test_yama_numpy_matches_the_jax_package(native, monkeypatch):
             np.testing.assert_array_equal(a, b, err_msg=f"job {i} input")
         np.testing.assert_array_equal(TY.yama_numpy(*tjob),
                                       JY.yama_numpy(*job), err_msg=f"job {i}")
+
+
+@pytest.mark.parametrize("ref", ["jax-native", "jax-numpy"])
+def test_yama_numpy_of_an_empty_a_matches_the_jax_package(ref, monkeypatch):
+    """M == 0 on the port's one path: an empty A merges with an empty B
+    into no columns, and with a non-empty B the traceback walks off the
+    matrix, a YamaError in both packages."""
+    if ref == "jax-numpy":
+        monkeypatch.setattr(JY, "_mzcore", None)
+    A = np.empty((0, 2), np.uint8)
+    for N in (0, 1, 12):
+        B = np.frombuffer(b"ACGT-" * 8, np.uint8)[: N * 3].reshape(N, 3)
+        LB, RB = np.zeros(1, np.int64), np.full(1, N, np.int64)
+        try:
+            want = JY.yama_numpy(A, B, LB, RB)
+        except JY.YamaError:
+            with pytest.raises(TY.YamaError):
+                TY.yama_numpy(A, B, LB, RB)
+            assert N > 0
+            continue
+        assert N == 0
+        np.testing.assert_array_equal(TY.yama_numpy(A, B, LB, RB), want)
+        assert want.shape == (0, 5)
 
 
 def test_native_yama_many_and_replay_match_the_jax_package():

@@ -60,7 +60,11 @@ def test_row0_band_wider_than_the_kernel_goes_to_the_oracle(monkeypatch):
     RB = np.full(M + 1, 1100, dtype=np.int64)
     RB[M] = N
     job = (synth_block(rng, M, 2), synth_block(rng, N, 2), LB, RB)
-    assert P.pick_cw(LB, RB, M, N) == 512
+    # the ladder alone (the native admission pass) takes it at 512
+    # lanes; route_band sends it to the oracle for its row 0
+    cw, w, _ = P.Y._mzcore.band_info(LB, RB, M, N, P.ROW_CHUNK, P._CWS)
+    assert cw == 512 and w + 1 > P.MAX_LANES
+    assert P.route_band(LB, RB, M, N)[0] is None
     P.reset_route_stats()
     (got,) = P.yama_batch_packed([job], device="cpu")
     assert P.route_stats["fallback_jobs"] == 1
