@@ -13,10 +13,13 @@
 //     (mz_yama.c:257-291), for the host oracle path.
 //   * replay_into — edit script -> merged (K+L)-row column matrix
 //     (mz_yama.c:294-309).
+//   * pack_wire_into, replay_payload — the DP stream's wire buffer of a
+//     bucket and the replay of a launch's payload, one call a launch.
 
 #define PY_SSIZE_T_CLEAN
 #include <Python.h>
 
+#include <algorithm>
 #include <cstdint>
 #include <cstring>
 #include <memory>
@@ -146,6 +149,62 @@ PyObject* traceback_into(PyObject*, PyObject* args) {
     return PyLong_FromSsize_t(nedit);
 }
 
+// n bytes of a column (a block's rows: a few) copied, or set to DASH,
+// by fixed-size moves in place of a library call a row.
+inline void put_col(uint8_t* d, const uint8_t* s, Py_ssize_t n) {
+    switch (n) {
+        case 1: d[0] = s[0]; return;
+        case 2: std::memcpy(d, s, 2); return;
+        case 3: std::memcpy(d, s, 2); d[2] = s[2]; return;
+        case 4: std::memcpy(d, s, 4); return;
+        case 5: std::memcpy(d, s, 4); d[4] = s[4]; return;
+        case 6: std::memcpy(d, s, 4); std::memcpy(d + 4, s + 4, 2); return;
+        case 7: std::memcpy(d, s, 4); std::memcpy(d + 3, s + 3, 4); return;
+        case 8: std::memcpy(d, s, 8); return;
+        default: std::memcpy(d, s, n);
+    }
+}
+
+inline void dash_col(uint8_t* d, Py_ssize_t n) {
+    static const uint8_t dashes[8] = {DASH, DASH, DASH, DASH,
+                                      DASH, DASH, DASH, DASH};
+    if (n <= 8) put_col(d, dashes, n);
+    else std::memset(d, DASH, n);
+}
+
+// The merged (n, K+L) column matrix of one job (mz_yama.c:294-309): row
+// t takes op(t) (C, D or I, oldest first). A: (M, K), B: (N, L), both
+// C-contiguous. false where the ops do not consume A and B exactly.
+template <class Op>
+bool replay_rows(Op op, Py_ssize_t n, const uint8_t* a, Py_ssize_t M,
+                 Py_ssize_t K, const uint8_t* b, Py_ssize_t N, Py_ssize_t L,
+                 uint8_t* out) {
+    const Py_ssize_t W = K + L;
+    Py_ssize_t ai = 0, bi = 0;
+    for (Py_ssize_t t = 0; t < n; ++t) {
+        const uint8_t o = op(t);
+        uint8_t* row = out + t * W;
+        if (o != FLAG_I) {  // C or D consume a column of A
+            if (ai >= M) return false;
+            put_col(row, a + ai * K, K);
+            ++ai;
+        } else {
+            dash_col(row, K);
+        }
+        if (o != FLAG_D) {  // C or I consume a column of B
+            if (bi >= N) return false;
+            put_col(row + K, b + bi * L, L);
+            ++bi;
+        } else {
+            dash_col(row + K, L);
+        }
+    }
+    return ai == M && bi == N;
+}
+
+const char* const NOT_EXACT =
+    "new_align: script does not consume A and B exactly";
+
 // replay_into(script, n, reversed, A, M, K, B, N, L, out)
 //   script: uint8 ops; if reversed != 0 the ops are newest-first (walked
 //   back-to-front), else oldest-first. A: (M, K) uint8; B: (N, L) uint8;
@@ -160,41 +219,18 @@ PyObject* replay_into(PyObject*, PyObject* args) {
     Buf S(so, PyBUF_SIMPLE), A(ao, PyBUF_SIMPLE), B(bo, PyBUF_SIMPLE),
         O(oo, PyBUF_WRITABLE);
     if (!S.ok || !A.ok || !B.ok || !O.ok) return nullptr;
-    const Py_ssize_t W = K + L;
     if (S.len() < n || A.len() < M * K || B.len() < N * L ||
-        O.len() < n * W) {
+        O.len() < n * (K + L)) {
         PyErr_SetString(PyExc_ValueError, "replay_into: bad buffer sizes");
         return nullptr;
     }
     const uint8_t* script = S.u8();
-    const uint8_t* a = A.u8();
-    const uint8_t* b = B.u8();
-    uint8_t* out = O.u8();
-    Py_ssize_t ai = 0, bi = 0;
-    for (Py_ssize_t t = 0; t < n; ++t) {
-        uint8_t op = script[reversed_ ? n - 1 - t : t];
-        uint8_t* row = out + t * W;
-        if (op != FLAG_I) {  // C or D consume a column of A
-            if (ai >= M) goto bad;
-            std::memcpy(row, a + ai * K, K);
-            ++ai;
-        } else {
-            std::memset(row, DASH, K);
-        }
-        if (op != FLAG_D) {  // C or I consume a column of B
-            if (bi >= N) goto bad;
-            std::memcpy(row + K, b + bi * L, L);
-            ++bi;
-        } else {
-            std::memset(row + K, DASH, L);
-        }
+    auto op = [&](Py_ssize_t t) { return script[reversed_ ? n - 1 - t : t]; };
+    if (!replay_rows(op, n, A.u8(), M, K, B.u8(), N, L, O.u8())) {
+        PyErr_SetString(PyExc_ValueError, NOT_EXACT);
+        return nullptr;
     }
-    if (ai != M || bi != N) goto bad;
     Py_RETURN_NONE;
-bad:
-    PyErr_SetString(PyExc_ValueError,
-                    "new_align: script does not consume A and B exactly");
-    return nullptr;
 }
 
 // Sum-of-pairs score of columns [start, start+size) of n rows of equal
@@ -259,43 +295,68 @@ PyObject* score_range(PyObject*, PyObject* args) {
 // calls a row. Each answers or raises: a text that is not a 1-D byte
 // buffer, rows of unequal length or a cut outside the rows raise.
 
-// A row's text as bytes: a contiguous buffer read in place, else a 1-D
-// byte buffer (a strided view) copied.
-struct Text {
+// A buffer of R (1 or 2) dimensions of T (uint8_t: any one-byte format;
+// int64_t) as C-ordered elements: read in place where it is C-contiguous,
+// else gathered through its strides (copied once). rows is 1 where R is 1;
+// n = rows * cols.
+template <class T, int R>
+struct Strided {
+    static_assert(R == 1 || R == 2, "one or two dimensions");
     Py_buffer view{};
     bool got = false;
-    std::vector<uint8_t> copy;
-    const uint8_t* p = nullptr;
-    Py_ssize_t n = 0;
+    std::vector<T> copy;
+    const T* p = nullptr;
+    Py_ssize_t rows = 1, cols = 0, n = 0;
 
-    Text() = default;
-    Text(const Text&) = delete;
-    Text& operator=(const Text&) = delete;
-    ~Text() { if (got) PyBuffer_Release(&view); }
-    // false with an exception set
-    bool load(PyObject* o) {
-        if (PyObject_GetBuffer(o, &view, PyBUF_SIMPLE) == 0) {
-            got = true;
-            p = static_cast<const uint8_t*>(view.buf);
-            n = view.len;
-            return true;
-        }
-        PyErr_Clear();
+    Strided() = default;
+    Strided(const Strided&) = delete;
+    Strided& operator=(const Strided&) = delete;
+    ~Strided() { if (got) PyBuffer_Release(&view); }
+    // false with an exception set (ValueError "<what> is not ..." where
+    // the buffer has another rank or element type)
+    bool load(PyObject* o, const char* what) {
         if (PyObject_GetBuffer(o, &view, PyBUF_RECORDS_RO) != 0) return false;
         got = true;
-        if (view.ndim != 1 || view.itemsize != 1) {
-            PyErr_SetString(PyExc_ValueError, "a row's text is not 1-D bytes");
+        if (view.ndim != R || view.itemsize != (Py_ssize_t)sizeof(T) ||
+            !element_ok(view.format)) {
+            PyErr_Format(PyExc_ValueError, "%s is not a %d-D %s array", what,
+                         R, sizeof(T) == 1 ? "byte" : "int64");
             return false;
         }
-        n = view.shape[0];
-        const Py_ssize_t st = view.strides[0];
-        const uint8_t* b = static_cast<const uint8_t*>(view.buf);
+        if (R == 2) rows = view.shape[0];
+        cols = view.shape[R - 1];
+        n = rows * cols;
+        const Py_ssize_t s0 = R == 2 ? view.strides[0] : 0;
+        const Py_ssize_t s1 = view.strides[R - 1];
+        const char* b = static_cast<const char*>(view.buf);
+        if ((cols <= 1 || s1 == (Py_ssize_t)sizeof(T)) &&
+            (rows <= 1 || s0 == cols * (Py_ssize_t)sizeof(T))) {
+            p = reinterpret_cast<const T*>(b);
+            return true;
+        }
         copy.resize(n);
-        for (Py_ssize_t i = 0; i < n; ++i) copy[i] = b[i * st];
+        for (Py_ssize_t r = 0; r < rows; ++r)
+            for (Py_ssize_t c = 0; c < cols; ++c)
+                std::memcpy(&copy[r * cols + c], b + r * s0 + c * s1,
+                            sizeof(T));
         p = copy.data();
         return true;
     }
+
+  private:
+    static bool element_ok(const char* f) {
+        if (sizeof(T) == 1 || !f) return sizeof(T) == 1;
+        if (*f == '@' || *f == '=' || *f == '<') ++f;
+        return (f[0] == 'l' || f[0] == 'q') && f[1] == '\0';
+    }
 };
+
+// A row's text as bytes.
+using Text = Strided<uint8_t, 1>;
+// A job's A or B (columns, rows), or a launch's payload.
+using Mat = Strided<uint8_t, 2>;
+// A band bound.
+using Ints = Strided<int64_t, 1>;
 
 // #non-dash bytes of p[0:n].
 inline Py_ssize_t count_nondash(const uint8_t* p, Py_ssize_t n) {
@@ -454,7 +515,7 @@ struct Rows {
         has_pm.assign(m, 0);
     }
     bool add(Py_ssize_t i, PyObject* t) {  // row i's text, of length W
-        if (!text[i].load(t)) return false;
+        if (!text[i].load(t, "a row's text")) return false;
         if (W < 0) W = text[i].n;
         if (text[i].n != W) {
             PyErr_SetString(PyExc_ValueError, "a block's rows differ in length");
@@ -633,7 +694,7 @@ PyObject* nd_col(PyObject*, PyObject* args) {
     Py_ssize_t k, n;
     if (!PyArg_ParseTuple(args, "Onn", &to, &k, &n)) return nullptr;
     Text T;
-    if (!T.load(to)) return nullptr;
+    if (!T.load(to, "a row's text")) return nullptr;
     Py_ssize_t c = nd_col_of(T.p, T.n, k, n);
     if (c < 0) {
         PyErr_Format(PyExc_ValueError, "nd_col: no non-dash char %zd of %zd",
@@ -651,7 +712,7 @@ PyObject* nondash_count(PyObject*, PyObject* args) {
     Py_ssize_t col;
     if (!PyArg_ParseTuple(args, "On", &to, &col)) return nullptr;
     Text T;
-    if (!T.load(to)) return nullptr;
+    if (!T.load(to, "a row's text")) return nullptr;
     if (col > T.n) {
         PyErr_Format(PyExc_IndexError, "nondash_count: column %zd of %zd",
                      col, T.n);
@@ -1462,6 +1523,294 @@ PyObject* yama_many(PyObject*, PyObject* args) {
     return out;
 }
 
+// ---- the DP stream's per-launch host stages (yama_pack.pack_wire and
+// _replay_payload_slots): one pass over a launch's jobs each, in place of
+// a numpy loop a job. A job's arrays are read in place where they are
+// C-contiguous, else gathered through their strides.
+
+// One side's category nibbles (prep.wire_layout): X (ncol, nrow) bytes ->
+// dst (rp2, pad); packed row p holds row p in its low nibble and row
+// p + rp2 in its high one (the device unpack is a plain concat,
+// prep.col_stats). Every byte of dst is written.
+void pack_cats(uint8_t* dst, const uint8_t* X, Py_ssize_t ncol,
+               Py_ssize_t nrow, Py_ssize_t rp2, Py_ssize_t pad,
+               const uint8_t* cat) {
+    for (Py_ssize_t r = 0; r < rp2; ++r) {
+        uint8_t* d = dst + r * pad;
+        if (r >= nrow) {
+            std::memset(d, 0, pad);
+            continue;
+        }
+        const uint8_t* x = X + r;
+        if (r + rp2 < nrow) {
+            const Py_ssize_t h = rp2;
+            for (Py_ssize_t c = 0; c < ncol; ++c)
+                d[c] = cat[x[c * nrow]] | (uint8_t)(cat[x[c * nrow + h]] << 4);
+        } else {
+            for (Py_ssize_t c = 0; c < ncol; ++c) d[c] = cat[x[c * nrow]];
+        }
+        std::memset(d + ncol, 0, pad - ncol);
+    }
+}
+
+// A band bound's int32 wire row: rows 0..M, then row M out to mp1.
+inline void pack_band(int32_t* d, const int64_t* s, Py_ssize_t M,
+                      Py_ssize_t mp1) {
+    for (Py_ssize_t r = 0; r <= M; ++r) d[r] = (int32_t)s[r];
+    std::fill(d + M + 1, d + mp1, d[M]);
+}
+
+// A launch's pass runs with the GIL released where it is long (1 MiB of
+// wire or of results: about a millisecond), so that the host lane's
+// workers are not held for the whole pass; a short one keeps it
+// (releasing it queues the calling thread behind the lane's workers, see
+// sop_score).
+constexpr int64_t STREAM_NOGIL_BYTES = 1 << 20;
+
+// pack_wire_into(jobs, buf, m_pad, n_pad, Kp, Lp, (A, B, LB, RB, MNKL,
+//                end), cat)
+//   One bucket's wire buffer (prep.wire_layout's offsets, given) from
+//   (A, B, LB, RB) jobs: A (M, K) and B (N, L) bytes as category nibbles
+//   (cat: int8[256]), LB and RB (int64, >= M + 1) as int32 rows
+//   0..M then row M out to m_pad, and (M, N, K, L). Every byte of buf up
+//   to end is written (padding 0). ValueError where a job does not fit
+//   the bucket.
+PyObject* pack_wire_into(PyObject*, PyObject* args) {
+    PyObject *jo, *bo, *cato;
+    Py_ssize_t m_pad, n_pad, Kp, Lp, oA, oB, oLB, oRB, oM, end;
+    if (!PyArg_ParseTuple(args, "OOnnnn(nnnnnn)O", &jo, &bo, &m_pad, &n_pad,
+                          &Kp, &Lp, &oA, &oB, &oLB, &oRB, &oM, &end, &cato))
+        return nullptr;
+    Fast jobs(jo);
+    if (!jobs.o) return nullptr;
+    Buf out(bo, PyBUF_WRITABLE), cat(cato, PyBUF_SIMPLE);
+    if (!out.ok || !cat.ok) return nullptr;
+    const Py_ssize_t nb = PySequence_Fast_GET_SIZE(jobs.o);
+    const Py_ssize_t Kp2 = (Kp + 1) / 2, Lp2 = (Lp + 1) / 2, mp1 = m_pad + 1;
+    const Py_ssize_t a_end = oA + nb * Kp2 * m_pad;
+    const Py_ssize_t b_end = oB + nb * Lp2 * n_pad;
+    const Py_ssize_t rows = nb * mp1 * 4;
+    uint8_t* w = out.u8();
+    if (cat.len() < 256 || m_pad < 0 || n_pad < 0 || Kp < 0 || Lp < 0 ||
+        oA < 0 || a_end > oB || b_end > oLB || oLB + rows > oRB ||
+        oRB + rows > oM || oM + nb * 16 > end || end > out.len() ||
+        ((uintptr_t)(w + oLB) | (uintptr_t)(w + oRB) | (uintptr_t)(w + oM)) % 4) {
+        PyErr_SetString(PyExc_ValueError, "pack_wire_into: bad layout");
+        return nullptr;
+    }
+    // every job's arrays first, with the GIL
+    struct Job {
+        Mat A, B;
+        Ints LB, RB;
+    };
+    std::unique_ptr<Job[]> jv(new Job[nb]);
+    for (Py_ssize_t i = 0; i < nb; ++i) {
+        Fast job(PySequence_Fast_GET_ITEM(jobs.o, i));
+        if (!job.o) return nullptr;
+        if (PySequence_Fast_GET_SIZE(job.o) != 4) {
+            PyErr_SetString(PyExc_ValueError, "a job is not (A, B, LB, RB)");
+            return nullptr;
+        }
+        Job& J = jv[i];
+        PyObject** it = PySequence_Fast_ITEMS(job.o);
+        if (!J.A.load(it[0], "A") || !J.B.load(it[1], "B") ||
+            !J.LB.load(it[2], "LB") || !J.RB.load(it[3], "RB"))
+            return nullptr;
+        const Py_ssize_t M = J.A.rows, K = J.A.cols, N = J.B.rows,
+                         L = J.B.cols;
+        if (M > m_pad || N > n_pad || K > 2 * Kp2 || L > 2 * Lp2 ||
+            J.LB.n < M + 1 || J.RB.n < M + 1) {
+            PyErr_Format(PyExc_ValueError,
+                         "job %zd (M %zd, N %zd, K %zd, L %zd, band %zd) "
+                         "does not fit the bucket (%zd, %zd, %zd, %zd)",
+                         i, M, N, K, L, std::min(J.LB.n, J.RB.n), m_pad,
+                         n_pad, Kp, Lp);
+            return nullptr;
+        }
+    }
+    const uint8_t* ct = cat.u8();
+    PyThreadState* _save =
+        end >= STREAM_NOGIL_BYTES ? PyEval_SaveThread() : nullptr;
+    // the gaps between the regions
+    std::memset(w, 0, oA);
+    std::memset(w + a_end, 0, oB - a_end);
+    std::memset(w + b_end, 0, oLB - b_end);
+    std::memset(w + oLB + rows, 0, oRB - oLB - rows);
+    std::memset(w + oRB + rows, 0, oM - oRB - rows);
+    std::memset(w + oM + nb * 16, 0, end - oM - nb * 16);
+    int32_t* lbs = reinterpret_cast<int32_t*>(w + oLB);
+    int32_t* rbs = reinterpret_cast<int32_t*>(w + oRB);
+    int32_t* mnkl = reinterpret_cast<int32_t*>(w + oM);
+    for (Py_ssize_t i = 0; i < nb; ++i) {
+        const Job& J = jv[i];
+        const Py_ssize_t M = J.A.rows, N = J.B.rows;
+        pack_cats(w + oA + i * Kp2 * m_pad, J.A.p, M, J.A.cols, Kp2, m_pad,
+                  ct);
+        pack_cats(w + oB + i * Lp2 * n_pad, J.B.p, N, J.B.cols, Lp2, n_pad,
+                  ct);
+        pack_band(lbs + i * mp1, J.LB.p, M, mp1);
+        pack_band(rbs + i * mp1, J.RB.p, M, mp1);
+        int32_t* q = mnkl + 4 * i;
+        q[0] = (int32_t)M;
+        q[1] = (int32_t)N;
+        q[2] = (int32_t)J.A.cols;
+        q[3] = (int32_t)J.B.cols;
+    }
+    if (_save) PyEval_RestoreThread(_save);
+    Py_RETURN_NONE;
+}
+
+// A new writable (n, w) uint8 numpy array (numpy.empty and the dtype
+// looked up once); nullptr with the error set.
+PyObject* new_u8_matrix(Py_ssize_t n, Py_ssize_t w) {
+    static PyObject *empty = nullptr, *u8 = nullptr;
+    if (!empty) {
+        PyObject* np = PyImport_ImportModule("numpy");
+        if (!np) return nullptr;
+        PyObject* e = PyObject_GetAttrString(np, "empty");
+        PyObject* d = e ? PyObject_CallMethod(np, "dtype", "s", "uint8")
+                        : nullptr;
+        Py_DECREF(np);
+        if (!d) {
+            Py_XDECREF(e);
+            return nullptr;
+        }
+        empty = e;
+        u8 = d;
+    }
+    return PyObject_CallFunction(empty, "(nn)O", n, w, u8);
+}
+
+// replay_payload(payload, slots, jobs, results)
+//   One launch's payload (yama_tb): row i holds the [nedit LE32] and the
+//   2-bit ops, newest first, 4 a byte, low bits first, of the job
+//   jobs[slots[i]] (an (A, B, ...) sequence; jobs a mapping); its merged
+//   (nedit, K + L) uint8 matrix is stored at results[slots[i]] (a mapping
+//   or a list) and the job popped from jobs. ValueError at the first job,
+//   in order, whose nedit overruns its row or whose script does not
+//   consume A and B exactly: the jobs before it keep their results, and
+//   it and they are popped.
+PyObject* replay_payload(PyObject*, PyObject* args) {
+    PyObject *po, *so, *jobs, *results;
+    if (!PyArg_ParseTuple(args, "OOOO", &po, &so, &jobs, &results))
+        return nullptr;
+    Fast slots(so);
+    if (!slots.o) return nullptr;
+    Mat P;
+    if (!P.load(po, "the payload")) return nullptr;
+    const Py_ssize_t nb = PySequence_Fast_GET_SIZE(slots.o), pw = P.cols;
+    if (P.rows < nb || pw < 4) {
+        PyErr_Format(PyExc_ValueError,
+                     "a payload of %zd rows of %zd bytes for %zd jobs",
+                     P.rows, pw, nb);
+        return nullptr;
+    }
+    // with the GIL: every job's A and B and an empty result, up to the
+    // first job that fails (bad; its error saved) ...
+    struct Job {
+        Mat A, B;
+        Py_ssize_t ne = 0;
+        PyObject* m = nullptr;  // the result, owned
+        uint8_t* o = nullptr;   // its bytes
+        ~Job() { Py_XDECREF(m); }
+    };
+    std::unique_ptr<Job[]> jv(new Job[nb]);
+    Py_ssize_t bad = nb, got = 0;
+    int64_t work = 0;
+    for (Py_ssize_t i = 0; i < nb && bad == nb; ++i) {
+        Job& J = jv[i];
+        bad = i;  // until job i is ready
+        PyObject* jo =
+            PyObject_GetItem(jobs, PySequence_Fast_GET_ITEM(slots.o, i));
+        if (!jo) break;
+        got = i + 1;
+        Fast job(jo);
+        Py_DECREF(jo);  // held by job.o
+        if (!job.o) break;
+        if (PySequence_Fast_GET_SIZE(job.o) < 2) {
+            PyErr_SetString(PyExc_ValueError, "a job has no A and B");
+            break;
+        }
+        if (!J.A.load(PySequence_Fast_GET_ITEM(job.o, 0), "A") ||
+            !J.B.load(PySequence_Fast_GET_ITEM(job.o, 1), "B"))
+            break;
+        const uint8_t* row = P.p + i * pw;
+        const uint32_t ne = (uint32_t)row[0] | (uint32_t)row[1] << 8 |
+                            (uint32_t)row[2] << 16 | (uint32_t)row[3] << 24;
+        if (4 + ((Py_ssize_t)ne + 3) / 4 > pw) {
+            PyErr_Format(PyExc_ValueError,
+                         "payload row %zd: nedit %lu overruns its %zd bytes",
+                         i, (unsigned long)ne, pw);
+            break;
+        }
+        const Py_ssize_t W = J.A.cols + J.B.cols;
+        J.ne = ne;
+        J.m = new_u8_matrix(J.ne, W);
+        if (!J.m) break;
+        Buf O(J.m, PyBUF_WRITABLE);
+        if (!O.ok) break;
+        if (O.len() != J.ne * W) {
+            PyErr_SetString(PyExc_ValueError,
+                            "replay_payload: a result of the wrong size");
+            break;
+        }
+        J.o = O.u8();  // J.m keeps the array, and so its bytes
+        work += J.ne * W;
+        bad = nb;
+    }
+    PyObject *et = nullptr, *ev = nullptr, *etb = nullptr;
+    if (bad < nb) PyErr_Fetch(&et, &ev, &etb);
+    // ... then the rows of jobs [0, bad), up to the first script that
+    // does not consume A and B exactly (fault) ...
+    Py_ssize_t fault = bad;
+    PyThreadState* _save =
+        work >= STREAM_NOGIL_BYTES ? PyEval_SaveThread() : nullptr;
+    for (Py_ssize_t i = 0; i < bad; ++i) {
+        const Job& J = jv[i];
+        const uint8_t* pk = P.p + i * pw + 4;
+        const Py_ssize_t n = J.ne;
+        auto op = [pk, n](Py_ssize_t t) {
+            const Py_ssize_t j = n - 1 - t;
+            return (uint8_t)((pk[j >> 2] >> ((j & 3) * 2)) & 3);
+        };
+        if (!replay_rows(op, n, J.A.p, J.A.rows, J.A.cols, J.B.p, J.B.rows,
+                         J.B.cols, J.o)) {
+            fault = i;
+            break;
+        }
+    }
+    if (_save) PyEval_RestoreThread(_save);
+    if (fault < bad) {  // an earlier job than the saved error's
+        Py_XDECREF(et);
+        Py_XDECREF(ev);
+        Py_XDECREF(etb);
+        et = ev = etb = nullptr;
+    }
+    // ... and, with the GIL, the results of jobs [0, fault) stored and
+    // jobs [0, fault] popped
+    const Py_ssize_t pop = std::min(fault < nb ? fault + 1 : nb, got);
+    for (Py_ssize_t i = 0; i < pop; ++i) {
+        PyObject* slot = PySequence_Fast_GET_ITEM(slots.o, i);
+        if ((i < fault && PyObject_SetItem(results, slot, jv[i].m) != 0) ||
+            PyObject_DelItem(jobs, slot) != 0) {
+            Py_XDECREF(et);
+            Py_XDECREF(ev);
+            Py_XDECREF(etb);
+            return nullptr;
+        }
+    }
+    if (et) {
+        PyErr_Restore(et, ev, etb);
+        return nullptr;
+    }
+    if (fault < nb) {
+        PyErr_Format(PyExc_ValueError, "payload row %zd: %s", fault,
+                     NOT_EXACT);
+        return nullptr;
+    }
+    Py_RETURN_NONE;
+}
+
 PyMethodDef methods[] = {
     {"colstats_into", colstats_into, METH_VARARGS,
      "per-column stats into pre-allocated int32 buffers"},
@@ -1491,6 +1840,10 @@ PyMethodDef methods[] = {
      "edit-script extraction (newest-first); returns nedit"},
     {"replay_into", replay_into, METH_VARARGS,
      "edit script -> merged column matrix"},
+    {"pack_wire_into", pack_wire_into, METH_VARARGS,
+     "one bucket's wire buffer from its jobs"},
+    {"replay_payload", replay_payload, METH_VARARGS,
+     "one launch's payload -> merged column matrices"},
     {nullptr, nullptr, 0, nullptr},
 };
 

@@ -9,7 +9,7 @@ launched asynchronously: H2D copy, prep (``ops/prep.py``), the DP
 forward kernel (``ops/yama_dp.py``), the traceback kernel
 (``ops/yama_tb.py``) and a D2H copy of the edit-script payload.
 ``finish()`` launches or host-routes the leftovers, waits for the
-copies and replays the scripts (``mzcore.replay_into``). Results are
+copies and replays the scripts (``mzcore.replay_payload``). Results are
 bit-identical to ``yama.yama_numpy``.
 
 Routing keeps the JAX stream's window-ladder admission (``route_band``)
@@ -134,19 +134,6 @@ def _pad8(n: int) -> int:
     return _round_up(max(n, 1), 8)
 
 
-def _pack_cat_rows(dst, X, nrow, rp2):
-    """Pack BYTE2CAT categories of X (ncol, nrow) into dst (rp2, >=ncol)
-    uint8 nibbles: low nibble of packed row p = row p, high nibble =
-    row p + rp2 (the device unpack is a plain concat, see prep.col_stats)."""
-    cat = sc.BYTE2CAT[X].astype(np.uint8).T  # (nrow, ncol)
-    ncol = cat.shape[1]
-    lo = min(nrow, rp2)
-    dst[:lo, :ncol] = cat[:lo]
-    if nrow > rp2:
-        hi = nrow - rp2
-        dst[:hi, :ncol] |= cat[rp2:] << 4
-
-
 def route_band(LB, RB, M: int, N: int) -> tuple:
     """(cw, w, cells) of one job's band (int LB, RB): the window width
     on the CWS ladder, or None when the job goes to the exact oracle;
@@ -213,28 +200,15 @@ def launch_cap(m_pad: int) -> int:
 
 def pack_wire(jobs, m_pad, n_pad, Kp, Lp, pin=False) -> torch.Tensor:
     """(A, B, LB, RB) jobs -> one bucket's uint8 wire buffer on the host
-    (``prep.wire_layout``), in pinned memory if ``pin``."""
-    nb = len(jobs)
-    mp1 = m_pad + 1
-    o = wire_layout(nb, m_pad, n_pad, Kp, Lp)
-    host = torch.zeros(o["end"], dtype=torch.uint8, pin_memory=pin)
-    hb = host.numpy()
-    Kp2, Lp2 = -(-Kp // 2), -(-Lp // 2)
-    Atex = hb[o["A"]:o["B"]].reshape(nb, Kp2, m_pad)
-    Btex = hb[o["B"]:o["B"] + nb * Lp2 * n_pad].reshape(nb, Lp2, n_pad)
-    LBs = hb[o["LB"]:o["RB"]].view(np.int32).reshape(nb, mp1)
-    RBs = hb[o["RB"]:o["MNKL"]].view(np.int32).reshape(nb, mp1)
-    MNKL = hb[o["MNKL"]:o["end"]].view(np.int32).reshape(nb, 4)
-    for i, (A, B, LB, RB) in enumerate(jobs):
-        M, K = A.shape
-        N, L = B.shape
-        _pack_cat_rows(Atex[i], A, K, Kp2)
-        _pack_cat_rows(Btex[i], B, L, Lp2)
-        LBs[i, : M + 1] = LB[: M + 1]
-        RBs[i, : M + 1] = RB[: M + 1]
-        LBs[i, M + 1 :] = LB[M]
-        RBs[i, M + 1 :] = RB[M]
-        MNKL[i] = (M, N, K, L)
+    (``prep.wire_layout``), in pinned memory if ``pin``: one native pass
+    over the jobs (``mzcore.pack_wire_into``), which writes every byte."""
+    o = wire_layout(len(jobs), m_pad, n_pad, Kp, Lp)
+    host = torch.empty(o["end"], dtype=torch.uint8, pin_memory=pin)
+    Y._mzcore.pack_wire_into(
+        jobs, host.numpy(), m_pad, n_pad, Kp, Lp,
+        (o["A"], o["B"], o["LB"], o["RB"], o["MNKL"], o["end"]),
+        sc.BYTE2CAT,
+    )
     return host
 
 
@@ -601,13 +575,11 @@ def replay_script(script, ne: int, A, B) -> np.ndarray:
 
 def _replay_payload_slots(out_np, slots, jobs: dict, results: dict):
     """Replay one launch's payload ([nedit LE32] + 2-bit ops, newest
-    first) into merged column matrices at results[slot]; pops each job
-    after replay so a long stream does not hold every operand alive."""
-    for i, slot in enumerate(slots):
-        A, B, _, _ = jobs.pop(slot)
-        ne = int(out_np[i, :4].view(np.uint32)[0])
-        pk = out_np[i, 4 : 4 + (ne + 3) // 4]
-        script_rev = (
-            (pk[:, None] >> (np.arange(4, dtype=np.uint8) * 2)) & 3
-        ).astype(np.uint8).reshape(-1)[:ne]
-        results[slot] = replay_script(script_rev, ne, A, B)
+    first) into merged column matrices at results[slot], in one native
+    pass (``mzcore.replay_payload``), which pops each job so a long stream
+    does not hold every operand alive. YamaError at the first job, in
+    slot order, whose payload row or script is wrong."""
+    try:
+        Y._mzcore.replay_payload(out_np, slots, jobs, results)
+    except ValueError as e:
+        raise YamaError(str(e))
