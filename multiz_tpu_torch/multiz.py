@@ -77,15 +77,21 @@ class _DeferredDP:
     Where the run's trace is on (``trace.on``, read once here), the
     coroutines' steps are timed counters: ``preyama.plan`` (planning a
     job, ``next(gen)``) and ``preyama.fold`` (folding its result in,
-    ``gen.send``)."""
+    ``gen.send``), named ``preyama.plan.v0`` and ``preyama.fold.v0`` in
+    a v == 0 call; and each round after the first (its DP call: the
+    jobs' dispatch, wait and replay) is a span ``multiz.dp.round2`` with
+    attrs ``round``, ``jobs`` and ``cells`` (band cells of rows 1..M)."""
 
-    def __init__(self, batch_fn: Callable, sp):
+    def __init__(self, batch_fn: Callable, sp, v: int):
         self.batch_fn = batch_fn
         self.sp = sp
         self.pending: list = []  # (gen, slot, job-or-stream-handle)
         self.results: dict = {}
         self.n = 0
         self.timing = trace.on
+        suffix = ".v0" if v == 0 else ""
+        self.plan_name = "preyama.plan" + suffix
+        self.fold_name = "preyama.fold" + suffix
         stream_cls = getattr(batch_fn, "stream_cls", None)
         self.stream = stream_cls(sp=sp) if stream_cls is not None else None
 
@@ -102,7 +108,7 @@ class _DeferredDP:
             return slot
         finally:
             if timing:
-                trace.tick("preyama.plan", time.perf_counter() - t0)
+                trace.tick(self.plan_name, time.perf_counter() - t0)
         if self.stream is not None:
             job = self.stream.submit(job)  # -> stream handle
         self.pending.append((gen, slot, job))
@@ -111,15 +117,20 @@ class _DeferredDP:
     @trace.traced("multiz.dp")
     def run(self) -> None:
         timing = self.timing
-        first = True
+        rnd = 1
         while self.pending:
-            if self.stream is not None and first:
+            if self.stream is not None and rnd == 1:
                 outs_all = self.stream.finish()
                 outs = [outs_all[h] for (_, _, h) in self.pending]
             else:
                 jobs = [j for (_, _, j) in self.pending]
-                outs = self.batch_fn(jobs, sp=self.sp)
-            first = False
+                if timing and rnd > 1:
+                    with trace.span("multiz.dp.round2", round=rnd,
+                                    jobs=len(jobs), cells=_band_cells(jobs)):
+                        outs = self.batch_fn(jobs, sp=self.sp)
+                else:
+                    outs = self.batch_fn(jobs, sp=self.sp)
+            rnd += 1
             nxt = []
             for (gen, slot, _), res in zip(self.pending, outs):
                 if timing:
@@ -131,8 +142,17 @@ class _DeferredDP:
                 else:
                     nxt.append((gen, slot, job2))
                 if timing:
-                    trace.tick("preyama.fold", time.perf_counter() - t0)
+                    trace.tick(self.fold_name, time.perf_counter() - t0)
             self.pending = nxt
+
+
+def _band_cells(jobs) -> int:
+    """Band cells of rows 1..M of (A, B, LB, RB) jobs."""
+    n = 0
+    for A, _, LB, RB in jobs:
+        M = A.shape[0]
+        n += int((RB[1 : M + 1] - LB[1 : M + 1] + 1).sum())
+    return n
 
 
 @trace.traced("multiz.scan")
@@ -279,7 +299,7 @@ def multiz(
     defer = events = None
     final_out, final_out1, final_out2 = out, out1, out2
     if cfg.batch_fn is not None:
-        defer = _DeferredDP(cfg.batch_fn, sp)
+        defer = _DeferredDP(cfg.batch_fn, sp, v)
         events = []
 
         def _rec(sink):

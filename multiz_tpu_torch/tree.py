@@ -13,9 +13,10 @@ pid-dependent ways, so equality is defined over block lines (every '#' line
 is provenance, not data).
 
 With ``MZ_TIME`` set, a run records its spans (``trace.py``): the root
-``tba`` or ``roast``, ``tba.merge`` a tree node, ``maf.read`` a pair file
-parsed, ``maf_project``, ``threading.pair2tb`` / ``.get_covered`` /
-``.strip_top`` a tool call, and ``multiz`` (with ``multic``'s calls).
+``tba`` or ``roast``, ``tba.merge`` or ``roast.merge`` a tree node,
+``maf.read`` a pair file parsed, ``maf_project``, ``threading.pair2tb`` /
+``.get_covered`` / ``.strip_top`` a tool call, and ``multiz`` (with
+``multic``'s calls).
 Each bridging iteration of a tba merge (a pair file that joins the two
 sides) adds one to the counter ``tba.bridge.<kind>`` with its wall
 seconds, uncharged, by the branch of tba.c it takes (``bridge_kind``).
@@ -247,25 +248,25 @@ class Roast:
         self.mz[nid] = []
 
     def _merge(self, x: TreeNode, y: TreeNode, nid: int):
-        """mz_merge (auto_mz.c:52-118)."""
-        REF = self.ref
+        """mz_merge (auto_mz.c:52-118). A span ``roast.merge``."""
         n1, n2 = x.names, y.names
-        # REF-containing leaf shortcuts
-        if len(n1) == 1 and n1[0] == REF:
-            if len(n2) == 1:
-                blocks = self._read_pair(n1[0], n2[0])
+        v = roast_v(self.ref, n1, n2)
+        with trace.span("roast.merge", nid=nid, v=v, left=tuple(n1),
+                        right=tuple(n2)):
+            self._merge_node(n1, n2, nid, v)
+
+    def _merge_node(self, n1: List[str], n2: List[str], nid: int, v):
+        REF = self.ref
+        if v == "ref-leaf":  # REF-containing leaf shortcuts
+            if n1 == [REF]:
+                own, other, side = n1, n2, self.right
+            else:
+                own, other, side = n2, n1, self.left
+            if len(other) == 1:
+                blocks = self._read_pair(own[0], other[0])
                 self.mz[nid].extend(blocks or [])
             else:
-                self.mz[nid].extend(self.right.get(nid, []))
-            self.left[nid] = []
-            self.right[nid] = []
-            return
-        if len(n2) == 1 and n2[0] == REF:
-            if len(n1) == 1:
-                blocks = self._read_pair(n2[0], n1[0])
-                self.mz[nid].extend(blocks or [])
-            else:
-                self.mz[nid].extend(self.left.get(nid, []))
+                self.mz[nid].extend(side.get(nid, []))
             self.left[nid] = []
             self.right[nid] = []
             return
@@ -282,9 +283,7 @@ class Roast:
         self.left[nid] = lproj
         self.right[nid] = rproj
 
-        left_has = REF in n1
-        right_has = REF in n2
-        if not left_has and not right_has:
+        if v == 0:
             main, u1, u2 = self._mz(
                 self.left[nid], self.right[nid], 0, self.cfg, sp=self.sp
             )
@@ -294,7 +293,7 @@ class Roast:
                 self.mz[nid].extend(u2)
                 return
         else:
-            if right_has:
+            if REF in n2:
                 self.left[nid], self.right[nid] = (
                     self.right[nid], self.left[nid],
                 )
@@ -304,6 +303,17 @@ class Roast:
             self.mz[nid].extend(main)
         self.left[nid] = u1
         self.right[nid] = u2
+
+
+def roast_v(ref: str, n1s, n2s):
+    """What a roast node does, by its sides' species: ``"ref-leaf"``
+    where one side is the reference alone (auto_mz.c:58-81: no multiz
+    call), else the v of its multiz call: 1 where a side holds the
+    reference, 0 where neither does."""
+    if [ref] in (list(n1s), list(n2s)):
+        return "ref-leaf"
+    return 1 if ref in n1s or ref in n2s else 0
+
 
 def roast_run(ref, tree, pair_files, src_dir=".", cfg=None, suffix=".sing.maf",
               sp=None, aligner="multiz") -> Blocks:

@@ -254,3 +254,48 @@ def test_bridge_counters_charge_no_span(monkeypatch):
         assert selfs[idx] == pytest.approx(
             s.t1 - s.t0 - children - s.charged, abs=1e-12)
         assert selfs[idx] >= 0.0
+
+
+# a roast of the golden five species on a tree whose clade (mouse rat)
+# and ((mouse rat) dog) lack human: two multiz calls with v = 0
+ROAST_TREE = "((human chimp) ((mouse rat) dog))"
+ROAST_NAMES = {"roast.merge", "multiz.dp.round2"}
+V0_COUNTERS = {"preyama.plan.v0", "preyama.fold.v0"}
+
+
+def _roast(tree=ROAST_TREE):
+    from multiz_tpu_torch.tree import roast_run
+
+    blocks = roast_run("human", tree, PAIRS, src_dir=DATA,
+                       cfg=MultizConfig(batch_fn=P.batch_fn_for("cpu")),
+                       sp=scores.init_scores70())
+    return "".join(maf.format_ali(a) for a in blocks)
+
+
+def test_roast_names_are_recorded_only_with_mz_time_set(monkeypatch):
+    off = _roast()
+    assert trace.spans() == [] and trace.counters() == {}
+    monkeypatch.setenv("MZ_TIME", "1")
+    assert _roast() == off
+    recs = trace.spans()
+    assert ROAST_NAMES <= {s.name for s in recs}
+    assert V0_COUNTERS <= set(trace.counters())
+    merges = {s.attrs["nid"]: s.attrs["v"] for s in recs
+              if s.name == "roast.merge"}
+    assert sorted(merges.values(), key=str) == [0, 0, 1, "ref-leaf"]
+
+
+@pytest.mark.parametrize("run", ["tba", "roast_v1"])
+def test_v1_only_multiz_records_no_v0_counter_and_no_round2(run,
+                                                            monkeypatch):
+    """The golden tba, and a roast on the golden tree (every node holds
+    human), call multiz with v = 1 alone."""
+    monkeypatch.setenv("MZ_TIME", "1")
+    if run == "tba":
+        _tba()
+    else:
+        _roast(TREE)
+    c = trace.counters()
+    assert c["preyama.plan"].count > 0
+    assert not set(c) & V0_COUNTERS
+    assert "multiz.dp.round2" not in {s.name for s in trace.spans()}
